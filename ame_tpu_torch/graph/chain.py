@@ -1,0 +1,148 @@
+"""The quality mastering graph (PyTorch port).
+
+Port of ``ame_tpu/graph/chain.py``: ``params_from_settings``,
+``_stage_pre_quality``, the quality branch of ``_stage_normalize``,
+``_master_quality`` and ``master_graph``. The stage order is the reference's
+(audio_mastering_engine.py:185-223): analog character -> EQ -> width ->
+loudness normalize -> limiter, over one [N, 2] float32 tensor on one device.
+
+Not ported yet (ROADMAP.md): compat mode and the multiband stage;
+``master_graph`` raises ``NotImplementedError`` for them. The port runs
+eagerly, so there is no fused one-program variant.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ame_tpu_torch import config as C
+from ame_tpu_torch import precision
+from ame_tpu_torch.config import MasterSettings
+from ame_tpu_torch.ops import eq, saturate, stereo
+from ame_tpu_torch.ops.limiter import lookahead_limiter
+from ame_tpu_torch.ops.loudness import normalize_two_pass
+
+
+def params_from_settings(s: MasterSettings, device="cpu") -> dict:
+    """The graph's parameters: scalars as host floats (they design the
+    stages' filter coefficients on the host) and the per-band multiband
+    vectors as float32 tensors on ``device``."""
+    G = None if s.mb_edges is None else len(s.mb_edges) + 1
+    threshs = ((s.low_thresh, s.mid_thresh, s.high_thresh) if G is None
+               else s.mb_thresholds or (-20.0,) * G)
+    ratios = ((s.low_ratio, s.mid_ratio, s.high_ratio) if G is None
+              else s.mb_ratios or (3.0,) * G)
+    return {
+        "analog": float(s.analog_character),
+        "bass": float(s.bass_boost),
+        "mid_cut": float(s.mid_cut),
+        "presence": float(s.presence_boost),
+        "treble": float(s.treble_boost),
+        "width": float(s.width),
+        "lufs": float(s.lufs if s.lufs is not None else -14.0),
+        "tp": float(s.target_tp),
+        "lra": float(s.target_lra),
+        "threshs": torch.tensor(threshs, dtype=torch.float32, device=device),
+        "ratios": torch.tensor(ratios, dtype=torch.float32, device=device),
+    }
+
+
+def _stage_pre_quality(x, analog, bass, mid_cut, presence, treble,
+                       sample_rate, analog_on, width_on, width=None):
+    if analog_on:
+        x = saturate.analog_character_quality(x, sample_rate, analog)
+    x = eq.apply_eq_quality(x, sample_rate, bass, mid_cut, presence, treble)
+    if width_on:
+        x = stereo.stereo_width_quality(x, width)
+    return x
+
+
+class _StageClock:
+    """Per-stage seconds into an optional ``timer`` dict.
+
+    On CUDA each stage is bracketed by ``torch.cuda.Event``s and the times
+    are resolved once, in ``finish``, after the last stage — no sync between
+    stages. On the CPU the ops run synchronously and the host clock is used.
+    With no sink it is a pass-through."""
+
+    def __init__(self, sink: dict | None, device: torch.device):
+        self.sink = sink
+        self.cuda = device.type == "cuda"
+        self.events = []
+
+    def __call__(self, name, thunk):
+        if self.sink is None:
+            return thunk()
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = thunk()
+            end.record()
+            self.events.append((name, start, end))
+            return out
+        t0 = time.perf_counter()
+        out = thunk()
+        self._add(name, time.perf_counter() - t0)
+        return out
+
+    def _add(self, name, seconds):
+        self.sink[name] = self.sink.get(name, 0.0) + seconds
+
+    def finish(self):
+        for name, start, end in self.events:
+            end.synchronize()
+            self._add(name, start.elapsed_time(end) / 1000.0)
+        self.events = []
+
+
+def _master_quality(x, sample_rate, p, *, analog_on, width_on, lufs_on,
+                    n_valid=None, timer=None):
+    info = {}
+    clock = _StageClock(timer, x.device)
+    x = clock("analog_eq_width", lambda: _stage_pre_quality(
+        x, p["analog"], p["bass"], p["mid_cut"], p["presence"], p["treble"],
+        sample_rate, analog_on, width_on, p["width"]))
+    if lufs_on:
+        x, loud_info = clock("loudnorm", lambda: normalize_two_pass(
+            x, sample_rate, p["lufs"], n_valid=n_valid))
+        info.update(loud_info)
+    x = clock("limiter", lambda: lookahead_limiter(
+        x, sample_rate, C.LIMITER_CEILING, C.LIMITER_ATTACK_MS,
+        C.LIMITER_RELEASE_MS))
+    clock.finish()
+    return x, info
+
+
+def master_graph(x: torch.Tensor, sample_rate: float, settings,
+                 n_valid: int | None = None, timer: dict | None = None) -> tuple:
+    """Run the quality mastering graph.
+
+    Args:
+      x: [N, 2] float32 tensor in [-1, 1); the graph runs on its device.
+      sample_rate: track sample rate.
+      settings: MasterSettings (or reference settings dict); quality mode,
+        no multiband.
+      n_valid: true track length when x carries trailing padding.
+      timer: optional dict; per-stage seconds are accumulated into it.
+
+    Returns:
+      (y, info): mastered [N, 2] float32 and the loudness stats as 0-d
+      tensors (when normalization ran).
+    """
+    if isinstance(settings, dict):
+        settings = MasterSettings.from_dict(settings)
+    (mode, _chunked, multiband_on, analog_on, width_on, lufs_on,
+     _mb_edges) = settings.structure_key()
+    if mode != "quality" or multiband_on:
+        raise NotImplementedError(
+            f"ame_tpu_torch runs the quality chain without multiband only "
+            f"(got mode={mode!r}, multiband={multiband_on}); compat mode and "
+            f"multiband are later port slices, see ROADMAP.md")
+    precision.apply()
+    p = params_from_settings(settings, x.device)
+    return _master_quality(
+        x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
+        lufs_on=lufs_on, n_valid=n_valid, timer=timer)

@@ -1,0 +1,36 @@
+"""Analog character, quality mode (PyTorch port).
+
+Port of ``ame_tpu/ops/saturate.py::analog_character_quality``:
+
+    drive = 1 + 0.5 * (percent/100)
+    y = tanh(x * drive)
+    y = RBJ low shelf 120 Hz (+percent/100 dB) -> RBJ high shelf 12 kHz
+        (+1.5*percent/100 dB), as one k=2 cascade
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ame_tpu_torch import config as C
+from ame_tpu_torch.dsp import design
+from ame_tpu_torch.ops.scan_iir import sosfilt
+
+
+def analog_sos(sample_rate: float, character_percent: float) -> np.ndarray:
+    factor = character_percent / 100.0
+    return np.concatenate([
+        design.rbj_low_shelf(C.ANALOG_LOW_SHELF_HZ, sample_rate,
+                             factor * 1.0, 0.7071),
+        design.rbj_high_shelf(C.ANALOG_HIGH_SHELF_HZ, sample_rate,
+                              factor * 1.5, 0.7071),
+    ])
+
+
+def analog_character_quality(x: torch.Tensor, sample_rate: float,
+                             character_percent: float) -> torch.Tensor:
+    drive = 1.0 + character_percent / 100.0 * 0.5
+    y = torch.tanh(x * drive)
+    y, _ = sosfilt(analog_sos(sample_rate, character_percent), y)
+    return y

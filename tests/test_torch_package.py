@@ -1,0 +1,89 @@
+"""Package-level properties of the port: no jax import, the precision
+policy, the scope of what is ported, and the kernel build's failure mode."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ame_tpu_torch import precision
+from ame_tpu_torch.config import MasterSettings
+from ame_tpu_torch.graph.chain import master_graph
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_never_imports_jax():
+    """Importing every module of ame_tpu_torch leaves jax unimported."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import ame_tpu_torch\n"
+            "for m in pkgutil.walk_packages(ame_tpu_torch.__path__, "
+            "'ame_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "import ame_tpu_torch.api\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert 'ame_tpu' not in sys.modules\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_precision_turns_tf32_off():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        assert precision.tf32_enabled()
+        precision.apply()
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert not precision.tf32_enabled()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_master_graph_applies_precision_policy():
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        master_graph(torch.zeros(4096, 2), 44100, MasterSettings())
+        assert not precision.tf32_enabled()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("settings", [
+    dict(mode="compat"),
+    dict(multiband=True),
+    dict(mb_edges=(250.0, 2000.0)),
+], ids=["compat", "multiband", "g_band"])
+def test_unported_modes_raise(settings):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        master_graph(torch.zeros(4096, 2), 44100, MasterSettings(**settings))
+
+
+def test_unported_formats_raise(tmp_path):
+    from ame_tpu_torch.io import read_audio, write_audio
+    p = tmp_path / "x.mp3"
+    p.write_bytes(b"ID3\x04not really an mp3")
+    with pytest.raises(ValueError, match="WAV and AIFF"):
+        read_audio(str(p))
+    with pytest.raises(ValueError, match="WAV and AIFF"):
+        write_audio(str(tmp_path / "y.flac"), torch.zeros(8, 2).numpy(),
+                    44100)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """With no CUDA toolkit the build fails with a clear error, before
+    anything is written."""
+    from ame_tpu_torch.ops import _build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "_OUT", tmp_path / "out")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("cascade_scan")
+    assert not (tmp_path / "out").exists()
