@@ -73,7 +73,7 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
     rejected: their scale is not the int16 one."""
     from ame_tpu_torch.graph.chain import master_graph
     from ame_tpu_torch.io import force_stereo, write_audio
-    from ame_tpu_torch.ops.quantize import float_to_int16
+    from ame_tpu_torch.ops.quantize import float_to_int16, int16_roundtrip
 
     if settings is None:
         settings = MasterSettings()
@@ -98,6 +98,10 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
         x = staged.to(torch.float32) * (1.0 / 32768.0)
     else:
         x = staged.to(torch.float32)
+    if settings.mode == "compat":
+        # engine:190-191: compat also forces the int16 grid
+        # (set_sample_width(2) semantics)
+        x = int16_roundtrip(x)
 
     status_callback("Running mastering graph on device...")
     progress_callback(1, total_steps)

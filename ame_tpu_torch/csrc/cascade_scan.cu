@@ -11,8 +11,11 @@
 //      end state e_b [2k].
 //   2. block_carries: one thread per channel walks the blocks,
 //      c_{b+1} = A^tb · c_b + e_b, starting from zi. A^tb is computed on the
-//      host in float64 in the same coupled state basis the kernel carries, so
-//      no f32 squaring chain can overflow (near-unit-circle poles, quirk Q14).
+//      host in float64 in the same state basis the kernel carries, so no
+//      f32 squaring chain can overflow (near-unit-circle poles, quirk Q14).
+//      That basis is coupled for complex poles and triangular for real ones
+//      (ops/cascade_scan.py::_kernel_sections): a companion block rounded to
+//      f32 can move a pole next to z = 1 outside the unit circle.
 //   3. block_outputs: each (channel, block) thread re-runs its block from c_b
 //      and writes y; the thread of the last block also writes zf.
 //

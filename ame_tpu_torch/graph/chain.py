@@ -1,14 +1,25 @@
-"""The quality mastering graph (PyTorch port).
+"""The mastering graph (PyTorch port).
 
-Port of ``ame_tpu/graph/chain.py``: ``params_from_settings``,
-``_stage_pre_quality``, the quality branch of ``_stage_normalize``,
-``_master_quality`` and ``master_graph``. The stage order is the reference's
-(audio_mastering_engine.py:185-223): analog character -> EQ -> width ->
-loudness normalize -> limiter, over one [N, 2] float32 tensor on one device.
+Port of ``ame_tpu/graph/chain.py``: ``params_from_settings``, the compat
+stages ``_stage_analog_compat``, ``_stage_eq_width_compat`` and
+``_stage_multiband_compat``, ``_stage_pre_quality``, ``_stage_normalize``,
+``_master_compat``, ``_master_quality`` and ``master_graph``. The stage order
+is the reference's (audio_mastering_engine.py:185-223): analog character ->
+EQ -> width -> multiband -> loudness normalize -> limiter, over one [N, 2]
+float32 tensor on one device.
 
-Not ported yet (ROADMAP.md): compat mode and the multiband stage;
-``master_graph`` raises ``NotImplementedError`` for them. The port runs
-eagerly, so there is no fused one-program variant.
+* ``compat`` reproduces the reference chain's quirks: blend EQ (Q1-Q3),
+  int16 re-quantization at every stage boundary (Q5), the subtractive
+  crossover (Q4) with exact pydub compression and saturating adds (Q7),
+  ffmpeg's two-pass loudnorm with silent passthrough (Q9) and the
+  ffmpeg-contract alimiter, always on (Q8).
+* ``quality`` is the product chain: RBJ EQ, continuous f32 state, the
+  lookahead limiter.
+
+Not ported yet (ROADMAP.md): chunked compat (``compat_chunked=True``, Q6),
+quality multiband and G-band ``mb_edges``; ``master_graph`` raises
+``NotImplementedError`` for them. The port runs eagerly, so there is no
+fused one-program variant.
 """
 
 from __future__ import annotations
@@ -20,9 +31,11 @@ import torch
 from ame_tpu_torch import config as C
 from ame_tpu_torch import precision
 from ame_tpu_torch.config import MasterSettings
-from ame_tpu_torch.ops import eq, saturate, stereo
-from ame_tpu_torch.ops.limiter import lookahead_limiter
+from ame_tpu_torch.graph import multiband as mb
+from ame_tpu_torch.ops import eq, quantize, saturate, stereo
+from ame_tpu_torch.ops.limiter import alimiter_compat, lookahead_limiter
 from ame_tpu_torch.ops.loudness import normalize_two_pass
+from ame_tpu_torch.ops.loudnorm import loudnorm_two_pass
 
 
 def params_from_settings(s: MasterSettings, device="cpu") -> dict:
@@ -47,6 +60,34 @@ def params_from_settings(s: MasterSettings, device="cpu") -> dict:
         "threshs": torch.tensor(threshs, dtype=torch.float32, device=device),
         "ratios": torch.tensor(ratios, dtype=torch.float32, device=device),
     }
+
+
+def _stage_analog_compat(x, analog, sample_rate):
+    y = saturate.analog_character_compat(x, sample_rate, analog)
+    return quantize.int16_roundtrip(y)
+
+
+def _stage_eq_width_compat(x, bass, mid_cut, presence, treble, sample_rate,
+                           width_on, width=None):
+    y = eq.apply_eq_compat(x, sample_rate, bass, mid_cut, presence, treble)
+    if width_on:
+        y = stereo.stereo_width(y, width)
+    return quantize.int16_roundtrip(y)
+
+
+def _stage_multiband_compat(x, threshs, ratios, sample_rate):
+    return mb.multiband_compat(x, sample_rate, threshs, ratios)
+
+
+def _stage_normalize(x, target, tp, lra, n_valid, sample_rate, requantize):
+    """compat (``requantize``): ffmpeg's two-pass loudnorm flow
+    (engine:227-246), written back as int16 (pass 2 writes pcm_s16le).
+    quality: the clean gain of ``normalize_two_pass``."""
+    if requantize:
+        y, info = loudnorm_two_pass(x, sample_rate, target, tp, lra,
+                                    n_valid=n_valid)
+        return quantize.int16_roundtrip(y), info
+    return normalize_two_pass(x, sample_rate, target, n_valid=n_valid)
 
 
 def _stage_pre_quality(x, analog, bass, mid_cut, presence, treble,
@@ -98,6 +139,34 @@ class _StageClock:
         self.events = []
 
 
+def _master_compat(x, sample_rate, p, *, analog_on, width_on, multiband_on,
+                   lufs_on, n_valid=None, timer=None):
+    info = {}
+    clock = _StageClock(timer, x.device)
+    if analog_on:  # engine:192
+        x = clock("analog", lambda: _stage_analog_compat(
+            x, p["analog"], sample_rate))
+    x = clock("eq_width", lambda: _stage_eq_width_compat(  # engine:194-196
+        x, p["bass"], p["mid_cut"], p["presence"], p["treble"], sample_rate,
+        width_on, p["width"]))
+    if multiband_on:  # engine:197
+        # thresholds and ratios design nothing on the device: one fetch
+        threshs, ratios = p["threshs"].tolist(), p["ratios"].tolist()
+        x = clock("multiband", lambda: _stage_multiband_compat(
+            x, threshs, ratios, sample_rate))
+    if lufs_on:  # engine:216-220
+        x, loud_info = clock("loudnorm", lambda: _stage_normalize(
+            x, p["lufs"], p["tp"], p["lra"], n_valid, sample_rate, True))
+        info.update(loud_info)
+    # engine:223: alimiter, always (quirk Q8), with ffmpeg-contract ramps and
+    # the default auto-level 1/limit output scale
+    x = clock("limiter", lambda: alimiter_compat(
+        x, sample_rate, C.LIMITER_CEILING, C.LIMITER_ATTACK_MS,
+        C.LIMITER_RELEASE_MS))
+    clock.finish()
+    return x, info
+
+
 def _master_quality(x, sample_rate, p, *, analog_on, width_on, lufs_on,
                     n_valid=None, timer=None):
     info = {}
@@ -106,8 +175,8 @@ def _master_quality(x, sample_rate, p, *, analog_on, width_on, lufs_on,
         x, p["analog"], p["bass"], p["mid_cut"], p["presence"], p["treble"],
         sample_rate, analog_on, width_on, p["width"]))
     if lufs_on:
-        x, loud_info = clock("loudnorm", lambda: normalize_two_pass(
-            x, sample_rate, p["lufs"], n_valid=n_valid))
+        x, loud_info = clock("loudnorm", lambda: _stage_normalize(
+            x, p["lufs"], p["tp"], p["lra"], n_valid, sample_rate, False))
         info.update(loud_info)
     x = clock("limiter", lambda: lookahead_limiter(
         x, sample_rate, C.LIMITER_CEILING, C.LIMITER_ATTACK_MS,
@@ -118,13 +187,15 @@ def _master_quality(x, sample_rate, p, *, analog_on, width_on, lufs_on,
 
 def master_graph(x: torch.Tensor, sample_rate: float, settings,
                  n_valid: int | None = None, timer: dict | None = None) -> tuple:
-    """Run the quality mastering graph.
+    """Run the mastering graph.
 
     Args:
-      x: [N, 2] float32 tensor in [-1, 1); the graph runs on its device.
+      x: [N, 2] float32 tensor in [-1, 1) (int16-grid values in compat mode,
+        as ``api.master_array`` stages them); the graph runs on its device.
       sample_rate: track sample rate.
-      settings: MasterSettings (or reference settings dict); quality mode,
-        no multiband.
+      settings: MasterSettings (or reference settings dict): compat mode
+        without chunking, with or without multiband, or quality mode
+        without multiband.
       n_valid: true track length when x carries trailing padding.
       timer: optional dict; per-stage seconds are accumulated into it.
 
@@ -134,15 +205,25 @@ def master_graph(x: torch.Tensor, sample_rate: float, settings,
     """
     if isinstance(settings, dict):
         settings = MasterSettings.from_dict(settings)
-    (mode, _chunked, multiband_on, analog_on, width_on, lufs_on,
-     _mb_edges) = settings.structure_key()
-    if mode != "quality" or multiband_on:
+    (mode, chunked, multiband_on, analog_on, width_on, lufs_on,
+     mb_edges) = settings.structure_key()
+    if mode == "compat" and mb_edges is not None:
+        raise ValueError("mb_edges (G-band multiband) is quality-mode only; "
+                         "compat mode is pinned to the reference's 3-band "
+                         "stage")
+    if (mode == "compat" and chunked) or (mode != "compat" and multiband_on):
         raise NotImplementedError(
-            f"ame_tpu_torch runs the quality chain without multiband only "
-            f"(got mode={mode!r}, multiband={multiband_on}); compat mode and "
-            f"multiband are later port slices, see ROADMAP.md")
+            f"ame_tpu_torch does not run mode={mode!r} with "
+            f"compat_chunked={chunked}, multiband={multiband_on}, "
+            f"mb_edges={mb_edges} yet: chunked compat and quality multiband "
+            f"are later port slices, see ROADMAP.md")
     precision.apply()
     p = params_from_settings(settings, x.device)
+    if mode == "compat":
+        return _master_compat(
+            x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
+            multiband_on=multiband_on, lufs_on=lufs_on, n_valid=n_valid,
+            timer=timer)
     return _master_quality(
         x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
         lufs_on=lufs_on, n_valid=n_valid, timer=timer)

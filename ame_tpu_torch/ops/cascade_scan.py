@@ -9,8 +9,9 @@ and a re-run of every block from its carry that writes y (and zf from the
 last block). Any N: the ragged last block is masked in the kernel.
 
 The host side here designs everything the kernel reads in float64: the
-per-section coupled forms (``scan_iir._section_forms``), A^TB in the same
-basis, and the scipy zi/zf transforms. They travel to the kernel by value as
+per-section forms (``_kernel_sections``: coupled for complex poles,
+triangular for real ones), A^TB in the same basis, and the scipy zi/zf
+transforms. They travel to the kernel by value as
 kernel parameters, so nothing is uploaded per call.
 
 ``sosfilt_cuda`` launches the kernel for CUDA tensors and raises for any
@@ -35,6 +36,33 @@ _TB = 4096
 _MAX_SECTIONS = 8
 
 
+def _kernel_sections(sos: np.ndarray):
+    """``scan_iir._section_forms`` with every real-pole section moved from
+    the companion block [[-a1, 1], [-a2, 0]] to a triangular one.
+
+    Rounding the companion block to f32 can push a pole that sits just
+    inside the unit circle outside it: the dynamic-mode K-weighting's
+    high-pass pair (0.9999916, 0.9988645 at 44.1 kHz) becomes 1.00005, and
+    the kernel's per-sample walk and its A^tb carry diverge. With
+    z = s2 + q·s1, q a real pole (α when the pair is within 1e-12 of
+    double), the block is [[-a1 - q, 1], [-(q² + a1·q + a2), q]]: upper
+    triangular, its diagonal the two poles, so the f32 rows keep them where
+    they are. The first state component is still the TDF-II s1."""
+    sec, Vf, Vi = _section_forms(sos)
+    for i, (b0, b1, b2, _, a1, a2) in enumerate(np.asarray(sos, np.float64)):
+        alpha = -a1 * 0.5
+        beta_sq = a2 - alpha * alpha
+        if beta_sq > 1e-12:                 # complex: the coupled form
+            continue
+        q = alpha + np.copysign(np.sqrt(max(-beta_sq, 0.0)), alpha)
+        c1, c2 = b1 - a1 * b0, b2 - a2 * b0
+        sec[i] = [b0, c1, q * c1 + c2, -a1 - q, 1.0,
+                  -(q * q + a1 * q + a2), q]
+        Vi[i] = [[1.0, 0.0], [q, 1.0]]
+        Vf[i] = [[1.0, 0.0], [-q, 1.0]]
+    return sec, Vf, Vi
+
+
 @functools.lru_cache(maxsize=256)
 def _kernel_params(sos_bytes: bytes, k: int, tb: int) -> np.ndarray:
     """float32 parameter block in the layout ``cascade_scan_f32`` reads:
@@ -44,7 +72,7 @@ def _kernel_params(sos_bytes: bytes, k: int, tb: int) -> np.ndarray:
     of the f32-rounded section rows, so the block carry continues exactly
     the recurrence each block ran."""
     sos = np.frombuffer(sos_bytes, np.float64).reshape(k, 6)
-    sec, Vf, Vi = _section_forms(sos)
+    sec, Vf, Vi = _kernel_sections(sos)
     sec = sec.astype(np.float32)
     A = _compose_sections(sec)[0]
     with np.errstate(over="ignore", invalid="ignore", under="ignore"):

@@ -1,10 +1,21 @@
-"""Quality-mode 4-band EQ (PyTorch port).
+"""4-band EQ (PyTorch port of ``ame_tpu/ops/eq.py``).
 
-Port of the quality half of ``ame_tpu/ops/eq.py``: ``apply_eq_quality``, with
-the closed forms of ``_rbj_shelf_coeffs_jnp`` / ``_rbj_peaking_coeffs_jnp``.
-Gains are host floats here, so the coefficients come from the same RBJ
-formulas in float64 on the host (``dsp/design.rbj_*``). The compat blends
-are not ported yet (ROADMAP.md).
+Compat half: ``shelf_blend_compat``, ``peak_blend_compat``,
+``apply_shelf_compat``, ``apply_peak_compat`` and ``apply_eq_compat`` — the
+reference's blend formulas (engine:283-298):
+
+    shelf, gain_db > 0:  y = x + (lp(x) - x) * (g - 1)
+    shelf, gain_db < 0:  y = x*g + (lp(x) - x*g) == lp(x)    (quirk Q1)
+    peak:                y = x + bp(x) * (g - 1)
+
+with order-2 Butterworth shelf cores and the order-4 reference bandpass
+(``design.reference_peak_band_sos``, quirk Q14). Gains are host floats, so a
+zero-gain band is skipped on the host, as the reference returns its input
+before filtering (engine:284, 291).
+
+Quality half: ``apply_eq_quality`` with the RBJ closed forms of
+``_rbj_shelf_coeffs_jnp`` / ``_rbj_peaking_coeffs_jnp``, designed in float64
+on the host (``dsp/design.rbj_*``) and run as one k=4 cascade.
 """
 
 from __future__ import annotations
@@ -15,6 +26,70 @@ import torch
 from ame_tpu_torch import config as C
 from ame_tpu_torch.dsp import design
 from ame_tpu_torch.ops.scan_iir import sosfilt
+
+
+def _gain_minus_one(gain_db: float) -> float:
+    """g - 1 with g = 10^(gain_db/20), rounded to float32 as the
+    reference's traced f32 scalar math leaves it."""
+    g = np.float32(10.0 ** (np.float32(gain_db) / np.float32(20.0)))
+    return float(g - np.float32(1.0))
+
+
+def shelf_blend_compat(x: torch.Tensor, filtered: torch.Tensor,
+                       gain_db: float) -> torch.Tensor:
+    """The reference shelf blend (engine:287-289), including the Q1
+    collapse to the raw filtered signal for negative gains and identity
+    at 0."""
+    if gain_db > 0:
+        return x + (filtered - x) * _gain_minus_one(gain_db)
+    if gain_db < 0:
+        return filtered
+    return x
+
+
+def peak_blend_compat(x: torch.Tensor, band: torch.Tensor,
+                      gain_db: float) -> torch.Tensor:
+    """The reference peak blend (engine:297-298): x + band*(g-1)."""
+    return x + band * _gain_minus_one(gain_db)
+
+
+def apply_shelf_compat(x: torch.Tensor, sample_rate: float,
+                       cutoff_hz: float, gain_db: float,
+                       filter_type: str) -> torch.Tensor:
+    """Reference apply_shelf_filter (engine:283-289): order-2 Butterworth
+    LP/HP core (cutoff clamped below Nyquist) + compat blend; gain 0 is a
+    no-op."""
+    if gain_db == 0:
+        return x
+    cutoff_norm = min(cutoff_hz / (0.5 * sample_rate), 0.999999)
+    sos = design.ba_to_sos_biquad(*design.butter_ba(2, cutoff_norm,
+                                                    filter_type))
+    filtered, _ = sosfilt(sos, x)
+    return shelf_blend_compat(x, filtered, gain_db)
+
+
+def apply_peak_compat(x: torch.Tensor, sample_rate: float, center_hz: float,
+                      gain_db: float, q: float = C.PEAK_Q) -> torch.Tensor:
+    """Reference apply_peak_filter (engine:290-298): order-4 bandpass core
+    (edge clamps Q14) + additive blend; gain 0 is a no-op."""
+    if gain_db == 0:
+        return x
+    band, _ = sosfilt(design.reference_peak_band_sos(sample_rate, center_hz,
+                                                     q), x)
+    return peak_blend_compat(x, band, gain_db)
+
+
+def apply_eq_compat(x: torch.Tensor, sample_rate: float, bass_db: float,
+                    mid_cut_db: float, presence_db: float,
+                    treble_db: float) -> torch.Tensor:
+    """The reference 4-band chain (engine:277-281): low shelf 250 Hz ->
+    peak 1 kHz (mid_cut NEGATED, quirk Q3) -> peak 4 kHz -> high shelf
+    8 kHz. Both channels ride one filter call."""
+    x = apply_shelf_compat(x, sample_rate, C.BASS_SHELF_HZ, bass_db, "low")
+    x = apply_peak_compat(x, sample_rate, C.MID_PEAK_HZ, -mid_cut_db)
+    x = apply_peak_compat(x, sample_rate, C.PRESENCE_PEAK_HZ, presence_db)
+    return apply_shelf_compat(x, sample_rate, C.TREBLE_SHELF_HZ, treble_db,
+                              "high")
 
 
 def eq_quality_sos(sample_rate: float, bass_db: float, mid_cut_db: float,

@@ -2,9 +2,10 @@
 (PyTorch port).
 
 Port of ``ame_tpu/ops/loudness.py``: ``_gating_block_powers``,
-``_integrated_gate``, ``_lra_gate``, ``_measure_jit`` (here ``_measure``),
-``_tp_filterbank``, ``_tp_tile_matrix``, ``true_peak``, ``measure`` and
-``normalize_two_pass``. Everything stays on the input's device; results are
+``_integrated_gate``, ``_lra_gate``, ``_measure_jit`` (here ``_measure``,
+with its ``dynamic_domain`` flag), ``gated_stats_from_hops``,
+``_tp_filterbank``, ``_tp_tile_matrix``, ``true_peak``, ``integrated_lufs``,
+``measure`` and ``normalize_two_pass``. Everything stays on the input's device; results are
 0-d tensors, so a master needs no host round trip until its info is read.
 
   * K-filter: the 2-section cascade through ``scan_iir.sosfilt``.
@@ -110,13 +111,45 @@ def _lra_gate(p_s: torch.Tensor, v_s: torch.Tensor) -> torch.Tensor:
                        l_sorted.new_zeros(()))
 
 
-def _measure(x: torch.Tensor, sample_rate: float, n_valid: int | None = None):
-    """(integrated, lra, rel_thresh) of [N, C] audio."""
-    y, _ = sosfilt(design.k_weighting_sos(sample_rate), x)
+def _measure(x: torch.Tensor, sample_rate: float, n_valid: int | None = None,
+             dynamic_domain: bool = False):
+    """(integrated, lra, rel_thresh) of [N, C] audio. ``dynamic_domain``
+    measures as ffmpeg's dynamic-mode loudnorm does, with the corrected
+    K-weighting of ``design.k_weighting_dynamic_sos``."""
+    sos = (design.k_weighting_dynamic_sos(sample_rate) if dynamic_domain
+           else design.k_weighting_sos(sample_rate))
+    y, _ = sosfilt(sos, x)
     p_m, v_m = _gating_block_powers(y, sample_rate, 0.400, 0.100, n_valid)
     integrated, rel_thresh = _integrated_gate(p_m, v_m)
     p_s, v_s = _gating_block_powers(y, sample_rate, 3.000, 1.000, n_valid)
     return integrated, _lra_gate(p_s, v_s), rel_thresh
+
+
+def gated_stats_from_hops(hop_sums: torch.Tensor, hop: int,
+                          n_valid: int | None = None):
+    """(integrated, lra, rel_thresh) from 100 ms hop ENERGIES [H] (K-weighted
+    squares summed over channels) — the hop-domain twin of ``_measure``.
+    ``n_valid`` masks gating blocks that end past the true track end."""
+    H = hop_sums.shape[0]
+    nv = H * hop if n_valid is None else int(n_valid)
+    dev = hop_sums.device
+    csum = torch.cat([hop_sums.new_zeros((1,)), torch.cumsum(hop_sums, 0)])
+    nb_m = H - 4 + 1
+    p_m = (csum[4:4 + nb_m] - csum[:nb_m]) / (hop * 4)
+    v_m = (torch.arange(nb_m, device=dev) + 4) * hop <= nv
+    integrated, rel_thresh = _integrated_gate(p_m, v_m)
+    hps = 10                                # hops per second
+    n_sec = H // hps
+    if n_sec >= 3:
+        hs_s = torch.sum(hop_sums[: n_sec * hps].reshape(n_sec, hps), dim=1)
+        csum_s = torch.cat([hs_s.new_zeros((1,)), torch.cumsum(hs_s, 0)])
+        nb_s = n_sec - 3 + 1
+        p_s = (csum_s[3:3 + nb_s] - csum_s[:nb_s]) / (hop * hps * 3)
+        v_s = (torch.arange(nb_s, device=dev) + 3) * (hop * hps) <= nv
+        lra = _lra_gate(p_s, v_s)
+    else:
+        lra = hop_sums.new_zeros(())
+    return integrated, lra, rel_thresh
 
 
 # ---------------------------------------------------------------------------
@@ -195,13 +228,22 @@ def true_peak_db(x: torch.Tensor) -> torch.Tensor:
 # Public measurement API
 # ---------------------------------------------------------------------------
 
+def integrated_lufs(x: torch.Tensor, sample_rate: float,
+                    n_valid: int | None = None) -> torch.Tensor:
+    """Gated integrated loudness of [N, C] (or [N]) audio, in LUFS."""
+    if x.ndim == 1:
+        x = x[:, None]
+    return _measure(x, float(sample_rate), n_valid)[0]
+
+
 def measure(x: torch.Tensor, sample_rate: float,
-            n_valid: int | None = None) -> dict:
+            n_valid: int | None = None, dynamic_domain: bool = False) -> dict:
     """Integrated loudness, LRA, 4x true peak (dBTP) and the integrated
     measurement's relative gating threshold, as 0-d tensors."""
     if x.ndim == 1:
         x = x[:, None]
-    integrated, lra, rel_thresh = _measure(x, float(sample_rate), n_valid)
+    integrated, lra, rel_thresh = _measure(x, float(sample_rate), n_valid,
+                                           dynamic_domain)
     return {"input_i": integrated, "input_lra": lra,
             "input_tp": true_peak_db(x), "input_thresh": rel_thresh}
 

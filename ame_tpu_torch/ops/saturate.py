@@ -1,11 +1,11 @@
-"""Analog character, quality mode (PyTorch port).
-
-Port of ``ame_tpu/ops/saturate.py::analog_character_quality``:
+"""Analog character (PyTorch port of ``ame_tpu/ops/saturate.py``:
+``analog_character_compat`` and ``analog_character_quality``).
 
     drive = 1 + 0.5 * (percent/100)
     y = tanh(x * drive)
-    y = RBJ low shelf 120 Hz (+percent/100 dB) -> RBJ high shelf 12 kHz
-        (+1.5*percent/100 dB), as one k=2 cascade
+    compat:  compat shelf blend 120 Hz low (+percent/100 dB), then 12 kHz
+             high (+1.5*percent/100 dB) — two k=1 Butterworth cores
+    quality: RBJ low shelf 120 Hz -> RBJ high shelf 12 kHz, one k=2 cascade
 """
 
 from __future__ import annotations
@@ -15,7 +15,18 @@ import torch
 
 from ame_tpu_torch import config as C
 from ame_tpu_torch.dsp import design
+from ame_tpu_torch.ops import eq
 from ame_tpu_torch.ops.scan_iir import sosfilt
+
+
+def analog_character_compat(x: torch.Tensor, sample_rate: float,
+                            character_percent: float) -> torch.Tensor:
+    factor = character_percent / 100.0
+    y = torch.tanh(x * (1.0 + factor * 0.5))
+    y = eq.apply_shelf_compat(y, sample_rate, C.ANALOG_LOW_SHELF_HZ,
+                              factor * 1.0, "low")
+    return eq.apply_shelf_compat(y, sample_rate, C.ANALOG_HIGH_SHELF_HZ,
+                                 factor * 1.5, "high")
 
 
 def analog_sos(sample_rate: float, character_percent: float) -> np.ndarray:

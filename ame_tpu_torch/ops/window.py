@@ -2,7 +2,7 @@
 
 Port of ``ame_tpu/ops/window.py``: ``sliding_min_ahead``,
 ``_moving_sum_matrix`` / ``_moving_sum_tiles``, ``moving_sum_past``,
-``moving_mean_past`` and ``release_scan``. All run along axis 0 on the
+``moving_mean_past``, ``windowed_sum_exclusive`` and ``release_scan``. All run along axis 0 on the
 input's device. The van Herk / Gil-Werman decomposition keeps every partial
 reduction bounded by one window (no long-cumsum cancellation in f32).
 """
@@ -110,6 +110,17 @@ def moving_mean_past(x: torch.Tensor, w: int) -> torch.Tensor:
     count = torch.clamp(torch.arange(1, x.shape[0] + 1, device=x.device),
                         max=w).to(x.dtype)
     return s / count.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def windowed_sum_exclusive(x: torch.Tensor, w: int) -> torch.Tensor:
+    """y[n] = sum of x[n-w .. n-1] (window strictly before n; ZERO while the
+    full window does not fit — pydub's detector sees an empty slice and
+    rms == 0 for the first ``w`` frames)."""
+    s = moving_sum_past(x, w)
+    shifted = torch.cat([s.new_zeros((1,) + x.shape[1:]), s[:-1]], dim=0)
+    full = torch.arange(x.shape[0], device=x.device) >= w
+    return torch.where(full.reshape(_bshape(x, x.shape[0])), shifted,
+                       torch.zeros_like(shifted))
 
 
 def _shift_right_fill(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:

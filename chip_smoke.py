@@ -8,25 +8,55 @@ it imports nothing of JAX or of the ame_tpu package. Phases, in order — any
 failure raises and the script exits non-zero without the final line:
 
   1. device: the card's name and nvidia-smi's name / power limit line;
-  2. build: compiles ame_tpu_torch/csrc/cascade_scan.cu from the checkout;
-  3. kernel vs plain: the chain's three cascades (analog shelves k=2,
-     4-band EQ k=4, K-weighting k=2) on [2^23 + 1234, 2] noise with a
+  2. build: compiles ame_tpu_torch/csrc/{cascade_scan,wedge_env,pydub_gain}.cu
+     from the checkout, one nvcc each, all started together;
+  3. kernel vs plain: the quality chain's three cascades (analog shelves
+     k=2, 4-band EQ k=4, K-weighting k=2) on [2^23 + 1234, 2] noise with a
      non-zero zi, kernel against the plain tile-conv version on the card
-     (max abs error <= 1e-4 for y and zf), with both times;
+     (max abs error <= 1e-4 for y and zf), with both times; plus the Q14
+     Nyquist-clamped order-4 bandpass at 8 kHz (kernel within 1e-4);
   4. main path: master_file on a 2^23-sample 44.1 kHz stereo WAV with the
      flagship settings; checks the written master (length, finite, ceiling,
      loudness within 0.5 LU of -14) and that the main path made exactly 3
      kernel launches; device-chain and file-to-file times as x realtime;
   5. card vs CPU: master_graph on the first 2^20 samples on both devices
      (max abs difference <= 2e-4, gain difference <= 0.01 dB);
-  6. a {"kernels": [...]} line, then the last line
+  6. the compat chain's seven cascades (k=1 shelf cores, the k=4 presence
+     band, the k=2 crossovers, the k=3 dynamic-mode K-weighting) through
+     the cascade kernel vs its plain version on [2^23 + 1234, 2] noise
+     (within 1e-4); then the wedge envelope (K1) vs its plain 12-scan form
+     on the card, both directions, on the compat depths of
+     [2^23 + 1234, 2] noise at 0.5 (envelope within 1e-5, limited output
+     within 1/32768);
+  7. gain kernels (K2 Jacobi sweep, K3 pass 1, K4 pass 2) vs the plain
+     sequential walk on the card, bit for bit: (a) K2 on 2^17 bursts and
+     freeze runs,
+     (b) K3+K4 on translation-only content, where K2 must report no
+     convergence, (c) K2 against K3+K4 on the compat main path's band
+     max-attenuations at 2^23, and on those inputs each kernel against its
+     plain version: K2's full sweep from the relaxed carries, K4, and K3's
+     start states against the plain sweep's states at the group bounds;
+  8. compat main path: master_file (mode="compat", multiband) on a 2^23
+     gated noise + 100 Hz WAV that takes every band over its threshold;
+     K1 must launch twice, K5 seven times, K2 at least once and K3 / K4
+     never (the relaxation converges); the master's peak (<= 1.0,
+     auto-level) and loudness (within 1.0 LU of the auto-levelled -14);
+     stage times; then the fallback path: master_file on steady 0.5 noise,
+     whose low band does not converge, so K3 and K4 must launch;
+  9. compat card vs CPU on the first 2^20 samples: relative L2 < 3e-3 or
+     max abs <= 2/32768, loudnorm gain_db / output_i within 0.01 dB;
+ 10. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Times are medians of 3 warm runs, taken with torch.cuda.Event (device work)
-or the host clock after a synchronize (file to file).
+Every kernel's launch count is set to 0 just before each main path and read
+just after it. Times are medians of 3 warm runs, taken with
+torch.cuda.Event (device work) or the host clock after a synchronize (file
+to file). Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s f32.
 """
 
+import concurrent.futures
 import json
+import math
 import os
 import re
 import subprocess
@@ -41,14 +71,23 @@ SR = 44100
 N_KERNEL = (1 << 23) + 1234       # ragged: not a multiple of the kernel block
 N_MAIN = 1 << 23                  # 3:10 at 44.1 kHz
 N_PARITY = 1 << 20
+N_GAIN_PLAIN = 1 << 17            # the plain sequential walk's length
 FLAGSHIP = dict(analog_character=20.0, bass_boost=2.0, presence_boost=1.5,
                 width=1.2, lufs=-14.0)
+COMPAT = dict(FLAGSHIP, mode="compat", multiband=True)
 KERNEL_TOL = 1e-4     # tests/test_pallas_scan.py holds K5 to 1e-4
+WEDGE_TOL = 1e-5
+LSB = 1.0 / 32768.0
 PARITY_TOL = 2e-4
 GAIN_TOL_DB = 0.01
 LUFS_TOL = 0.5
+COMPAT_LUFS_TOL = 1.0          # tests/test_chain.py:176's allowance
+COMPAT_TARGET = -14.0 + 20.0 * math.log10(1.0 / 0.98)   # auto-levelled
 CEILING = 0.98 + 1e-5
 REPS = 3
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+F32_FLOPS = 67e12              # H100 SXM, f32 outside the tensor cores
+ATTACK, RELEASE = 220.5, 2205.0   # the compressor's 5 / 50 ms at 44.1 kHz
 
 
 def _cuda_ms(fn) -> float:
@@ -78,6 +117,34 @@ def _host_s(fn) -> float:
     return float(np.median(times))
 
 
+def _bound(nbytes: float, flops: float):
+    """(least ms, what bounds it) for moving nbytes and doing flops f32
+    operations at the card's published peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _counters():
+    from ame_tpu_torch.ops import pydub_gain as pg
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    from ame_tpu_torch.ops.wedge_env import wedge_env_cuda
+    return {"wedge_env": wedge_env_cuda, "gain_jacobi": pg.gain_jacobi_cuda,
+            "gain_p1": pg.gain_p1_cuda, "gain_p2": pg.gain_p2_cuda,
+            "cascade_scan": sosfilt_cuda}
+
+
+def _zero_counts() -> None:
+    torch.cuda.synchronize()
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -95,13 +162,17 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from ame_tpu_torch.ops import _build
-    info = _build.build("cascade_scan")
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", info["ptxas"])]
-    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill",
-                                            info["ptxas"]))
-    print(f"build: {info['path'].name} in {info['seconds']:.2f} s; ptxas: "
-          f"{len(regs)} kernels, at most {max(regs, default=0)} registers, "
-          f"{spills} bytes spilled")
+    names = ("cascade_scan", "wedge_env", "pydub_gain")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        infos = list(pool.map(_build.build, names))
+    for info in infos:
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                           info["ptxas"])]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill",
+                                                info["ptxas"]))
+        print(f"build: {info['path'].name} in {info['seconds']:.2f} s; "
+              f"ptxas: {len(regs)} kernels, at most {max(regs, default=0)} "
+              f"registers, {spills} bytes spilled")
 
 
 def phase_kernel() -> dict:
@@ -145,7 +216,18 @@ def phase_kernel() -> dict:
         print(f"kernel {name}: |y| err {err_y:.3e}, |zf| err {err_zf:.3e}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"[{N_KERNEL}, 2]")
-    return {"rows": rows}
+    # quirk Q14: the presence band's upper edge clamps next to Nyquist at
+    # 8 kHz, so its top pole pair sits within ~1e-6 of z = -1
+    q14 = design.reference_peak_band_sos(8000.0, 4000.0)
+    xq = x[: 1 << 20]
+    err_q14 = (sosfilt_cuda(q14, xq)[0]
+               - sosfilt_tileconv(q14, xq)[0]).abs().max().item()
+    print(f"kernel q14_bandpass_k4 at 8 kHz: |y| err {err_q14:.3e}")
+    if not err_q14 <= KERNEL_TOL:
+        raise AssertionError(f"Q14 bandpass: kernel vs plain {err_q14:.3e}")
+    nbytes = sum(2 * N_KERNEL * 2 * 4 for _ in rows)     # x in, y out
+    flops = sum(12 * r["k"] * N_KERNEL * 2 for r in rows)
+    return {"rows": rows, "bound": _bound(nbytes, flops)}
 
 
 def phase_main(tmp: str) -> dict:
@@ -162,9 +244,9 @@ def phase_main(tmp: str) -> dict:
     write_wav(src, 0.1 * rng.standard_normal((N_MAIN, 2)), SR)
     settings = MasterSettings(**FLAGSHIP)
 
-    torch.cuda.synchronize()
-    sosfilt_cuda.launches = 0
+    _zero_counts()
     info = master_file(src, dst, settings, device="cuda")
+    counts = _read_counts()
     launches = sosfilt_cuda.launches
     if launches != 3:
         raise AssertionError(f"main path made {launches} kernel launches, "
@@ -197,8 +279,8 @@ def phase_main(tmp: str) -> dict:
           f"({duration:.2f} s track)")
     print("stages (ms): " + ", ".join(f"{k} {v * 1e3:.3f}"
                                       for k, v in stages.items()))
-    return {"launches": launches, "chain_ms": chain_ms, "file_s": file_s,
-            "out_i": out_i, "peak": peak, "stages": stages}
+    return {"launches": launches, "counts": counts, "chain_ms": chain_ms,
+            "file_s": file_s, "out_i": out_i, "peak": peak, "stages": stages}
 
 
 def phase_parity() -> dict:
@@ -221,26 +303,420 @@ def phase_parity() -> dict:
     return {"max_abs_diff": diff, "gain_diff_db": gain}
 
 
+# ---------------------------------------------------------------------------
+# Compat chain: K1 (wedge_env), K2 (gain_jacobi), K3 (gain_p1), K4 (gain_p2)
+# ---------------------------------------------------------------------------
+
+def phase_compat_kernel() -> float:
+    """K5's counterpart on the compat chain's own cascades (the seven
+    launches of a compat master), kernel vs plain on the card."""
+    from ame_tpu_torch import config as C
+    from ame_tpu_torch.dsp import design
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
+
+    def shelf(hz, kind):
+        return design.ba_to_sos_biquad(*design.butter_ba(2, hz / (SR / 2),
+                                                         kind))
+    cascades = {
+        "analog_low_shelf_k1": shelf(C.ANALOG_LOW_SHELF_HZ, "low"),
+        "analog_high_shelf_k1": shelf(C.ANALOG_HIGH_SHELF_HZ, "high"),
+        "bass_shelf_k1": shelf(C.BASS_SHELF_HZ, "low"),
+        "presence_band_k4": design.reference_peak_band_sos(
+            SR, C.PRESENCE_PEAK_HZ),
+        "crossover_low_k2": design.butter_sos(4, C.MB_LOW_CROSSOVER_HZ,
+                                              "lowpass", fs=SR),
+        "crossover_high_k2": design.butter_sos(4, C.MB_HIGH_CROSSOVER_HZ,
+                                               "highpass", fs=SR),
+        "k_weighting_dynamic_k3": design.k_weighting_dynamic_sos(SR),
+    }
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(
+        (0.3 * rng.standard_normal((N_KERNEL, 2))).astype(np.float32)).cuda()
+    worst = 0.0
+    for name, sos in cascades.items():
+        err = (sosfilt_cuda(sos, x)[0]
+               - sosfilt_tileconv(sos, x)[0]).abs().max().item()
+        print(f"kernel compat {name}: |y| err {err:.3e} [{N_KERNEL}, 2]")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"compat cascade {name}: kernel vs plain "
+                                 f"{err:.3e} > {KERNEL_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_wedge() -> dict:
+    from ame_tpu_torch.ops.limiter import _wedge_pieces, alimiter_compat
+    from ame_tpu_torch.ops.wedge_env import wedge_env_cuda, wedge_env_plain
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(
+        (0.5 * rng.standard_normal((N_KERNEL, 2))).astype(np.float32)).cuda()
+    # the compat depth formula of alimiter_compat (limit 0.98, 5 / 50 ms)
+    peak = x.abs().amax(dim=1)
+    dep = torch.clamp(1.0 - 0.98 / torch.clamp(peak, min=1e-9), min=0.0)
+    sides = {"release": (_wedge_pieces(RELEASE), False),
+             "attack": (_wedge_pieces(float(round(5.0 * SR / 1000.0))),
+                        True)}
+    env_k, env_p, err = {}, {}, 0.0
+    for side, (pieces, reverse) in sides.items():
+        env_k[side] = wedge_env_cuda(dep, pieces, reverse)
+        env_p[side] = wedge_env_plain(dep, pieces, reverse)
+        e = (env_k[side] - env_p[side]).abs().max().item()
+        print(f"wedge_env {side}: |env| err {e:.3e} [{N_KERNEL}]")
+        err = max(err, e)
+    if not err <= WEDGE_TOL:
+        raise AssertionError(f"wedge_env vs plain {err:.3e} > {WEDGE_TOL}")
+    # the limited output: the kernel path against the plain envelopes
+    y_k = alimiter_compat(x, SR)
+    d_p = torch.maximum(env_p["release"], env_p["attack"])
+    y_p = x * ((1.0 - d_p) * float(np.float32(1.0) / np.float32(0.98)))[:,
+                                                                        None]
+    err_y = (y_k - y_p).abs().max().item()
+    print(f"alimiter_compat kernel vs plain envelopes: |y| err {err_y:.3e}")
+    if not err_y <= LSB:
+        raise AssertionError(f"limited output differs by {err_y} > 1/32768")
+
+    def both(env):
+        return lambda: [env(dep, p, r) for p, r in sides.values()]
+    ms = _cuda_ms(both(wedge_env_cuda))
+    plain_ms = _cuda_ms(both(wedge_env_plain))
+    P = len(sides["release"][0])
+    bound = _bound(2 * 2 * N_KERNEL * 4, 2 * 4 * P * N_KERNEL)
+    print(f"wedge_env both directions: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (bound {bound[0]:.4f} ms)")
+    return {"max_abs_err": max(err, err_y), "ms": ms, "plain_ms": plain_ms,
+            "bound": bound}
+
+
+def _gain_bounds(G: int, n: int):
+    ng = -(-n // 32)
+    flops = 5 * G * n
+    return {"gain_jacobi": _bound(2 * G * n * 4, flops),
+            "gain_p1": _bound(G * n * 4 + G * ng * 4, flops),
+            "gain_p2": _bound(2 * G * n * 4 + G * ng * 4, flops)}
+
+
+def _compat_input(n: int) -> np.ndarray:
+    """The compat main path's input: 0.3 N(0,1) noise + 0.3 sin(2 pi 100 t),
+    gated by a 0.5 Hz on/off envelope with 10 ms ramps, clipped."""
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / SR
+    period, ramp = 2.0, 0.010
+    ph = t % period
+    env = np.clip(np.minimum(ph / ramp, (period / 2 - ph) / ramp), 0.0, 1.0)
+    env[ph >= period / 2] = 0.0
+    x = (0.3 * rng.standard_normal((n, 2))
+         + 0.3 * np.sin(2 * np.pi * 100.0 * t)[:, None]) * env[:, None]
+    return np.clip(x, -1.0, 1.0)
+
+
+def _band_max_att(x: torch.Tensor) -> torch.Tensor:
+    """[3, N] detector max-attenuations of the compat chain's three bands,
+    as the multiband stage computes them from the graph's input x."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    from ame_tpu_torch.graph.multiband import _crossover_compat
+    from ame_tpu_torch.ops import compressor, quantize
+
+    p = chain.params_from_settings(MasterSettings(**COMPAT), x.device)
+    y = chain._stage_analog_compat(x, p["analog"], SR)
+    y = chain._stage_eq_width_compat(y, p["bass"], p["mid_cut"],
+                                     p["presence"], p["treble"], SR, True,
+                                     p["width"])
+    bands = _crossover_compat(y, SR)
+    return torch.stack([
+        compressor.pydub_detector(quantize.float_to_int16(b), SR, th, ra)[1]
+        for b, th, ra in zip(bands, p["threshs"].tolist(),
+                             p["ratios"].tolist())]).contiguous()
+
+
+def phase_gain(m_main: torch.Tensor) -> dict:
+    from ame_tpu_torch.ops import pydub_gain as pg
+
+    ia, ir = pg._scal(ATTACK, RELEASE)
+
+    def walk(m, ia, ir):          # the plain sequential walk, on the card
+        return pg._gain_scan(m.T.contiguous(), ia, ir).T
+
+    # (a) K2 on a burst and a freeze run per chain, between silences
+    # (tests/test_compressor.py:221-223, three chains)
+    rng = np.random.default_rng(7)
+    m = np.zeros((3, N_GAIN_PLAIN), np.float32)
+    for g in range(3):
+        m[g, 5000:60000] = (4 - g) * np.abs(rng.standard_normal(55000))
+        m[g, 100000:120000] = 2.0 + g
+    m = torch.from_numpy(m).cuda()
+    z3 = torch.zeros(3, device="cuda")
+    att_j, ok, sweeps = pg._jacobi(m, z3, ia, ir)
+    ref = walk(m, ia, ir)
+    if not all(ok) or not torch.equal(att_j, ref):
+        raise AssertionError(f"(a) gain_jacobi: converged {ok}, max diff "
+                             f"{(att_j - ref).abs().max().item()}")
+    err_a = (att_j - ref).abs().max().item()
+    walk_ms = _cuda_ms(lambda: walk(m, ia, ir))
+    print(f"gain (a) gain_jacobi == plain walk bit for bit "
+          f"[3, {N_GAIN_PLAIN}], {sweeps} sweeps; plain walk "
+          f"{walk_ms:.1f} ms at {N_GAIN_PLAIN} samples")
+
+    # (b) translation-only content: K2 must not converge, K3+K4 are exact
+    ia_t, ir_t = pg._scal(1e9, RELEASE)
+    mt = torch.full((1, N_GAIN_PLAIN), 10.0, device="cuda")
+    z1 = torch.zeros(1, device="cuda")
+    _, ok_t, sweeps_t = pg._jacobi(mt, z1, ia_t, ir_t)
+    tp = pg._two_pass(mt, z1, ia_t, ir_t)
+    ref_t = walk(mt, ia_t, ir_t)
+    if any(ok_t) or not torch.equal(tp, ref_t):
+        raise AssertionError(f"(b) converged {ok_t}; two-pass max diff "
+                             f"{(tp - ref_t).abs().max().item()}")
+    err_b = (tp - ref_t).abs().max().item()
+    print(f"gain (b) translation-only: gain_jacobi gave up after {sweeps_t} "
+          f"sweeps; gain_p1 + gain_p2 == plain walk bit for bit")
+
+    # (c) the compat main path's bands at 2^23: two algorithms, one answer
+    G, n = m_main.shape
+    att_c, ok_c, sweeps_c = pg._jacobi(m_main, z3, ia, ir)
+    tp_c = pg._two_pass(m_main, z3, ia, ir)
+    if not all(ok_c) or not torch.equal(att_c, tp_c):
+        raise AssertionError(f"(c) converged {ok_c}; jacobi vs two-pass max "
+                             f"diff {(att_c - tp_c).abs().max().item()}")
+    err_c = (att_c - tp_c).abs().max().item()
+    print(f"gain (c) main-path bands [{G}, {n}]: gain_jacobi converged in "
+          f"{sweeps_c} sweeps, == gain_p1 + gain_p2 bit for bit")
+
+    # each kernel against its plain version on the main path's inputs at
+    # 2^23: the full Jacobi sweep from the relaxed carries, pass 1, pass 2
+    npad = pg._pad_block(n)
+    S = pg._select_S(npad)
+    seg_len = npad // S
+    m_t = torch.nn.functional.pad(m_main, (0, npad - n)).reshape(
+        G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
+    c_fix, _, _ = pg._jacobi_carries(m_t, G, S, z3, ia, ir)
+    c = c_fix.reshape(-1).contiguous()
+    co_k, att_tk = pg.gain_jacobi_cuda(m_t, c, ia, ir, True)
+    co_p, att_tp = pg.gain_jacobi_plain(m_t, c, ia, ir, True)
+    if not (torch.equal(co_k, co_p) and torch.equal(att_tk, att_tp)):
+        raise AssertionError(f"gain_jacobi vs plain at [{G}, {n}]: max diff "
+                             f"{(att_tk - att_tp).abs().max().item()}")
+    # the plain sweep is one continuous walk (each segment starts where the
+    # one before it ended), so it is the sequential walk and its states at
+    # the 32-sample group boundaries are pass 1's plain answer
+    att_p = att_tp.reshape(seg_len, G, S).permute(1, 2, 0).reshape(G, npad)
+    if not torch.equal(c_fix[:, 1:], att_p[:, seg_len - 1::seg_len][:, :-1]):
+        raise AssertionError("the relaxed carries are not the plain walk's")
+    starts = pg.gain_p1_cuda(m_main, None, z3, ia, ir)
+    starts_p = torch.cat([z3[:, None], att_p[:, pg._K - 1:n - 1:pg._K]], 1)
+    if not torch.equal(starts, starts_p):
+        raise AssertionError(f"gain_p1 vs the plain walk at [{G}, {n}]: max "
+                             f"diff {(starts - starts_p).abs().max().item()}")
+    att_k4 = pg.gain_p2_cuda(m_main, starts, ia, ir)
+    if not torch.equal(att_k4, pg.gain_p2_plain(m_main, starts, ia, ir)):
+        raise AssertionError(f"gain_p2 vs plain at [{G}, {n}]")
+    print(f"gain main-path inputs [{G}, {n}]: gain_jacobi (full sweep), "
+          f"gain_p1 and gain_p2 == their plain versions bit for bit")
+
+    # times at 2^23; the plain versions of K2 and K4 at 2^23, of K3 at 2^17
+    ms = {
+        "gain_jacobi": _cuda_ms(lambda: pg.gain_jacobi_cuda(m_t, c, ia, ir,
+                                                            True)),
+        "gain_p1": _cuda_ms(lambda: pg.gain_p1_cuda(m_main, None, z3, ia,
+                                                    ir)),
+        "gain_p2": _cuda_ms(lambda: pg.gain_p2_cuda(m_main, starts, ia, ir)),
+    }
+    m17 = m_main[:, :N_GAIN_PLAIN].contiguous()
+    plain_ms = {
+        "gain_jacobi": _cuda_ms(lambda: pg.gain_jacobi_plain(m_t, c, ia, ir,
+                                                             True)),
+        "gain_p1": _cuda_ms(lambda: pg.gain_p1_plain(m17, None, z3, ia, ir)),
+        "gain_p2": _cuda_ms(lambda: pg.gain_p2_plain(m_main, starts, ia,
+                                                     ir)),
+    }
+    engine_ms = _cuda_ms(lambda: pg._gain_engine(m_main, z3, ia, ir))
+    plain_n = {"gain_jacobi": n, "gain_p1": N_GAIN_PLAIN, "gain_p2": n}
+    bounds = _gain_bounds(G, n)
+    for k in ms:
+        print(f"{k}: kernel {ms[k]:.4f} ms [{G}, {n}], plain "
+              f"{plain_ms[k]:.4f} ms [{G}, {plain_n[k]}] (bound "
+              f"{bounds[k][0]:.4f} ms)")
+    print(f"gain engine (converged Jacobi, {sweeps_c} sweeps + full sweep) "
+          f"{engine_ms:.4f} ms [{G}, {n}]")
+    errs = {"gain_jacobi": max(err_a, err_c), "gain_p1": max(err_b, err_c),
+            "gain_p2": max(err_b, err_c)}
+    return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "n": n,
+            "errs": errs,
+            "bounds": bounds, "engine_ms": engine_ms, "sweeps": sweeps_c,
+            "walk_ms": walk_ms}
+
+
+def phase_compat_main(tmp: str) -> dict:
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.io.wav import read_wav, write_wav
+    from ame_tpu_torch.ops.loudness import integrated_lufs
+    from ame_tpu_torch.ops.quantize import int16_roundtrip
+
+    src = os.path.join(tmp, "compat_in.wav")
+    dst = os.path.join(tmp, "compat_out.wav")
+    write_wav(src, _compat_input(N_MAIN), SR)
+    settings = MasterSettings(**COMPAT)
+    pcm, _ = read_wav(src, prefer_int16=True)
+    # what master_array hands the graph in compat mode
+    x = int16_roundtrip(torch.from_numpy(pcm).cuda().to(torch.float32)
+                        * (1.0 / 32768.0))
+    m_main = _band_max_att(x)
+    band_peaks = m_main.amax(dim=1).tolist()
+    if not all(v > 0.0 for v in band_peaks):
+        raise AssertionError(f"a band never crosses its threshold: max "
+                             f"attenuations {band_peaks}")
+
+    _zero_counts()
+    info = master_file(src, dst, settings, device="cuda")
+    counts = _read_counts()
+    print("compat main path launches: " + json.dumps(counts))
+    if (counts["wedge_env"] != 2 or counts["gain_jacobi"] < 1
+            or counts["cascade_scan"] != 7 or counts["gain_p1"] != 0
+            or counts["gain_p2"] != 0):
+        raise AssertionError(f"compat main path launches {counts}: expected "
+                             f"2 wedge_env, 7 cascade_scan, at least 1 "
+                             f"gain_jacobi and no gain_p1 / gain_p2 (the "
+                             f"Jacobi relaxation converges on every band)")
+
+    out, sr = read_wav(dst)
+    if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
+        raise AssertionError(f"bad compat master: sr {sr}, shape "
+                             f"{out.shape}")
+    y, _ = master_graph(x, SR, settings)
+    peak = y.abs().max().item()
+    out_i = integrated_lufs(torch.from_numpy(out).cuda(), SR).item()
+    print(f"compat main path: band max attenuations "
+          f"{[round(v, 4) for v in band_peaks]} dB; master peak "
+          f"{peak:.6f}, measures {out_i:.4f} LUFS (target "
+          f"{COMPAT_TARGET:.4f}); linear_mode {info['linear_mode']:.0f}, "
+          f"gain {info['gain_db']:.4f} dB, output_i {info['output_i']:.4f}")
+    if not (peak <= 1.0 + 1e-5 and torch.isfinite(y).all().item()):
+        raise AssertionError(f"compat master peaks at {peak} > 1.0 + 1e-5")
+    if abs(out_i - COMPAT_TARGET) > COMPAT_LUFS_TOL:
+        raise AssertionError(f"compat master measures {out_i:.4f} LUFS, "
+                             f"target {COMPAT_TARGET:.4f}")
+
+    chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
+    file_s = _host_s(lambda: master_file(src, dst, settings, device="cuda"))
+    stages: dict = {}
+    master_graph(x, SR, settings, timer=stages)
+    duration = N_MAIN / SR
+    print(f"compat device chain {chain_ms:.3f} ms = "
+          f"{duration / (chain_ms / 1e3):.1f}x realtime; file to file "
+          f"{file_s * 1e3:.1f} ms = {duration / file_s:.1f}x realtime "
+          f"({duration:.2f} s track)")
+    print("compat stages (ms): " + ", ".join(f"{k} {v * 1e3:.3f}"
+                                             for k, v in stages.items()))
+    return {"counts": counts, "m_main": m_main, "pcm": pcm,
+            "chain_ms": chain_ms, "file_s": file_s, "out_i": out_i,
+            "peak": peak, "stages": stages}
+
+
+def phase_compat_fallback(tmp: str) -> dict:
+    """The compat path on steady 0.5 noise: the low band's max-attenuation
+    hovers over its threshold without ever saturating the recurrence, the
+    Jacobi relaxation stalls there, and the engine takes K3 + K4."""
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.io.wav import read_wav, write_wav
+
+    src = os.path.join(tmp, "steady_in.wav")
+    dst = os.path.join(tmp, "steady_out.wav")
+    rng = np.random.default_rng(1)
+    write_wav(src, np.clip(0.5 * rng.standard_normal((N_MAIN, 2)), -1, 1),
+              SR)
+    _zero_counts()
+    master_file(src, dst, COMPAT, device="cuda")
+    counts = _read_counts()
+    print("compat fallback path launches: " + json.dumps(counts))
+    if (counts["gain_p1"] < 1 or counts["gain_p2"] < 1
+            or counts["wedge_env"] != 2 or counts["gain_jacobi"] < 1):
+        raise AssertionError(f"compat fallback path launches {counts}")
+    out, sr = read_wav(dst)
+    if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
+        raise AssertionError(f"bad fallback master: shape {out.shape}")
+    return {"counts": counts}
+
+
+def phase_compat_parity(pcm: np.ndarray) -> dict:
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.ops.quantize import int16_roundtrip
+
+    x = int16_roundtrip(torch.from_numpy(pcm[:N_PARITY]).to(torch.float32)
+                        * (1.0 / 32768.0))
+    settings = MasterSettings(**COMPAT)
+    y_c, i_c = master_graph(x.cuda(), SR, settings)
+    y_h, i_h = master_graph(x, SR, settings)
+    y_c = y_c.cpu().double()
+    y_h = y_h.double()
+    rel = ((y_c - y_h).norm() / (y_h.norm() + 1e-12)).item()
+    mx = (y_c - y_h).abs().max().item()
+    d_gain = abs(i_c["gain_db"].item() - i_h["gain_db"].item())
+    d_oi = abs(i_c["output_i"].item() - i_h["output_i"].item())
+    print(f"compat card vs CPU [{N_PARITY}, 2]: relative L2 {rel:.3e}, max "
+          f"|y| diff {mx:.3e}; gain_db {i_c['gain_db'].item():.4f} vs "
+          f"{i_h['gain_db'].item():.4f}, output_i "
+          f"{i_c['output_i'].item():.4f} vs {i_h['output_i'].item():.4f}")
+    if not ((rel < 3e-3 or mx <= 2 * LSB) and d_gain <= GAIN_TOL_DB
+            and d_oi <= GAIN_TOL_DB):
+        raise AssertionError(f"compat card vs CPU: rel {rel}, max {mx}, "
+                             f"gain {d_gain} dB, output_i {d_oi} dB")
+    return {"rel_l2": rel, "max_abs_diff": mx}
+
+
 def main() -> int:
     kind = phase_device()
     phase_build()
     kern = phase_kernel()
     with tempfile.TemporaryDirectory() as tmp:
         main_run = phase_main(tmp)
-    phase_parity()
+        phase_parity()
+        compat_cascade_err = phase_compat_kernel()
+        wedge = phase_wedge()
+        compat = phase_compat_main(tmp)
+        gain = phase_gain(compat.pop("m_main"))
+        fallback = phase_compat_fallback(tmp)
+    phase_compat_parity(compat.pop("pcm"))
     rows = kern["rows"]
-    print(json.dumps({"kernels": [{
-        "name": "cascade_scan",
-        "route": "cuda",
-        "source": "ame_tpu_torch/csrc/cascade_scan.cu",
-        "replaces": "ame_tpu/ops/pallas_scan.py:65",
-        "launches": main_run["launches"],
-        "max_abs_err": max(max(r["max_abs_err_y"], r["max_abs_err_zf"])
-                           for r in rows),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "per_cascade": rows,
-    }]}))
+    paths = {"quality": main_run["counts"], "compat": compat["counts"],
+             "compat_fallback": fallback["counts"]}
+
+    def entry(name, source, replaces, path, err, ms, plain_ms, bound,
+              **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": paths[path][name],
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None, **extra}
+
+    csrc = "ame_tpu_torch/csrc/"
+    pg_src = "ame_tpu/ops/pydub_gain.py"
+    kernels = [
+        entry("cascade_scan", csrc + "cascade_scan.cu",
+              "ame_tpu/ops/pallas_scan.py:65", "quality",
+              max([max(r["max_abs_err_y"], r["max_abs_err_zf"])
+                   for r in rows] + [compat_cascade_err]),
+              sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows),
+              kern["bound"], per_cascade=rows),
+        entry("wedge_env", csrc + "wedge_env.cu",
+              "ame_tpu/ops/limiter.py:114", "compat", wedge["max_abs_err"],
+              wedge["ms"], wedge["plain_ms"], wedge["bound"],
+              n=N_KERNEL, note="both directions"),
+    ]
+    for name, line in (("gain_jacobi", 307), ("gain_p1", 140),
+                       ("gain_p2", 231)):
+        path = "compat" if name == "gain_jacobi" else "compat_fallback"
+        kernels.append(entry(
+            name, csrc + "pydub_gain.cu", f"{pg_src}:{line}", path,
+            gain["errs"][name],
+            gain["ms"][name], gain["plain_ms"][name], gain["bounds"][name],
+            n=gain["n"], plain_n=gain["plain_n"][name]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -27,6 +27,25 @@ CASCADES = {
 }
 
 
+# The compat chain's cascades that the quality chain does not run: k=1
+# Butterworth shelf cores, the order-4 crossovers, the reference peak band
+# (at 8 kHz its edge clamps next to Nyquist, quirk Q14), and the dynamic-mode
+# K-weighting, whose real pole pair sits within 1e-5 of z = 1.
+COMPAT_CASCADES = {
+    "shelf_core_k1": lambda: design.ba_to_sos_biquad(
+        *design.butter_ba(2, 120.0 / (0.5 * SR), "low")),
+    "crossover_low_k2": lambda: design.butter_sos(4, 250.0, "lowpass",
+                                                  fs=SR),
+    "crossover_high_k2": lambda: design.butter_sos(4, 4000.0, "highpass",
+                                                   fs=SR),
+    "peak_band_q14_k4": lambda: design.reference_peak_band_sos(8000.0,
+                                                               4000.0),
+    "k_dynamic_44k_k3": lambda: design.k_weighting_dynamic_sos(44100.0),
+    "k_dynamic_48k_k3": lambda: design.k_weighting_dynamic_sos(48000.0),
+}
+ALL_CASCADES = {**CASCADES, **COMPAT_CASCADES}
+
+
 def _noise(n, seed=0):
     return make_test_signal("noise", n, int(SR), seed=seed)
 
@@ -145,7 +164,27 @@ def test_zi_handoff_across_split(first, second):
     assert np.abs(zf2 - zf_full).max() <= 1e-5
 
 
-@pytest.mark.parametrize("name", sorted(CASCADES))
+@pytest.mark.parametrize("name", sorted(ALL_CASCADES))
+def test_kernel_sections_keep_poles_inside_unit_circle(name):
+    """Every pole of the f32 section rows the kernel walks lies inside the
+    unit circle, so the per-sample recurrence and A^tb stay bounded at any
+    length. (The companion form of the dynamic K-weighting's real pair
+    rounds one pole to 1.00005 in f32: the reason for the triangular
+    form.)"""
+    sos = ALL_CASCADES[name]()
+    k = sos.shape[0]
+    sec = cascade_scan._kernel_params(np.ascontiguousarray(sos).tobytes(),
+                                      k, 256)[:7 * k].reshape(k, 7)
+    for b0, bb1, bb2, a11, a12, a21, a22 in sec.astype(np.float64):
+        block = np.array([[a11, a12], [a21, a22]])
+        assert np.abs(np.linalg.eigvals(block)).max() < 1.0
+    want = np.abs(np.concatenate([np.roots(s[3:]) for s in sos]))
+    got = np.abs(np.linalg.eigvals(scan_iir._compose_sections(
+        sec.astype(np.float64))[0]))
+    np.testing.assert_allclose(np.sort(got), np.sort(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(ALL_CASCADES))
 def test_kernel_parameter_block_three_phase(name):
     """The host side of the CUDA kernel: a float64 numpy walk of the
     kernel's three phases (block end states, carry c_{b+1} = A^tb c_b + e_b,
@@ -153,7 +192,7 @@ def test_kernel_parameter_block_three_phase(name):
     receives, matches scipy within 1e-5 — so the block's layout, the
     section forms, A^tb and the zi/zf transforms are right before the card
     runs them."""
-    sos = CASCADES[name]()
+    sos = ALL_CASCADES[name]()
     k, D, tb = sos.shape[0], 2 * sos.shape[0], 256
     P = cascade_scan._kernel_params(np.ascontiguousarray(sos).tobytes(), k,
                                     tb).astype(np.float64)

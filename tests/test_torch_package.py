@@ -57,7 +57,7 @@ def test_master_graph_applies_precision_policy():
 
 
 @pytest.mark.parametrize("settings", [
-    dict(mode="compat"),
+    dict(mode="compat", compat_chunked=True),
     dict(multiband=True),
     dict(mb_edges=(250.0, 2000.0)),
 ], ids=["compat", "multiband", "g_band"])

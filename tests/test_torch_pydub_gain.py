@@ -1,0 +1,248 @@
+"""The port's exact pydub gain engine (ame_tpu_torch.ops.pydub_gain), the
+exact compressor and the compat multiband stage against ame_tpu's. On the
+CPU the engine runs the plain versions of its three kernels (gain_jacobi,
+gain_p1, gain_p2); the reference runs its Pallas kernels in the
+interpreter, as tests/test_compressor.py does.
+
+Rounding: the port pins the update to separately rounded products and
+sums, in the plain versions and in the CUDA kernels alike, so they agree
+bit for bit. XLA on the CPU contracts ``att + m*ia`` into a fused
+multiply-add, so the reference's scan rounds a last bit differently on
+some samples: port vs reference is held to tests/test_compressor.py's
+atol 1e-5 with median 0; port vs port is held bit for bit."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from ame_tpu_torch.graph import multiband
+from ame_tpu_torch.ops import compressor
+from ame_tpu_torch.ops import pydub_gain as pg
+from tests import oracles
+
+SR = 44100
+ATTACK, RELEASE = 220.5, 2205.0
+
+
+def _bursts(n, G=3, seed=3):
+    """[G, n] max-attenuations: a long active episode, a freeze run at a
+    constant level and silence around them — the converging kind."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((G, n), np.float32)
+    for g in range(G):
+        a, b = n // 8, n // 2
+        m[g, a:b] = (g + 1) * np.abs(rng.standard_normal(b - a))
+        m[g, b + 1000:b + 3000] = 2.0
+    return m
+
+
+def _walk(m, ia, ir, init=None):
+    """The recurrence in numpy f32, product and sum rounded separately.
+    m: [G, n]."""
+    att = np.zeros(m.shape[0], np.float32) if init is None else init.copy()
+    out = np.empty_like(m)
+    ia, ir = np.float32(ia), np.float32(ir)
+    for t in range(m.shape[1]):
+        mt = m[:, t]
+        att = np.where(att <= mt, np.minimum(att + mt * ia, mt),
+                       np.maximum(att - mt * ir, np.float32(0.0)))
+        out[:, t] = att
+    return out
+
+
+def _ref_scan(m):
+    from ame_tpu.ops.pydub_gain import _gain_scan
+    scal = jnp.asarray([[1.0 / ATTACK, 1.0 / RELEASE]], jnp.float32)
+    return np.asarray(_gain_scan(jnp.asarray(m.T), scal,
+                                 jnp.zeros(m.shape[0]))).T
+
+
+def _close_to_reference(got, want):
+    diff = np.abs(got - want)
+    assert diff.max() <= 1e-5, diff.max()
+    assert np.median(diff) == 0.0
+
+
+def test_constants_match_reference():
+    from ame_tpu.ops import pydub_gain as ref
+    assert (pg._K, pg._TB, pg._BR, pg._RMAX, pg._SMAX_LOG) == (
+        ref._K, ref._TB, ref._BR, ref._RMAX, ref._SMAX_LOG)
+    for n in (1, 5000, 1 << 17, (1 << 23) + 3):
+        assert pg._pad_block(n) == ref._pad_block(n)
+        assert pg._select_S(pg._pad_block(n)) == ref._select_S(
+            ref._pad_block(n))
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    assert (np.float32(ia), np.float32(ir)) == (np.float32(1 / ATTACK),
+                                                np.float32(1 / RELEASE))
+
+
+def test_gain_scan_matches_reference():
+    """Bit for bit against the separately rounded numpy walk; against the
+    reference's (FMA-contracted) scan within atol 1e-5, median 0."""
+    m = _bursts(1 << 13)
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    got = pg._gain_scan(torch.from_numpy(m.T.copy()), ia, ir).numpy().T
+    np.testing.assert_array_equal(got, _walk(m, ia, ir))
+    _close_to_reference(got, _ref_scan(m))
+    assert got.max() > 1.0
+
+
+def test_two_pass_plain_kernels_bit_equal_scan():
+    """K3 + K4's plain versions (and the resets K3 takes) reproduce the
+    sequential walk bit for bit, over a ragged last group."""
+    m = _bursts(3 * 4096 + 517, seed=7)
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    init = np.asarray([0.0, 1.5, 7.0], np.float32)
+    got = pg._two_pass(torch.from_numpy(m), torch.from_numpy(init), ia, ir)
+    np.testing.assert_array_equal(got.numpy(), _walk(m, ia, ir, init))
+    # resets zero the state before flagged 32-sample groups
+    ng = -(-m.shape[1] // pg._K)
+    resets = np.zeros(ng, np.float32)
+    resets[[40, 200]] = 1.0
+    got = pg._two_pass(torch.from_numpy(m), torch.from_numpy(init), ia, ir,
+                       torch.from_numpy(resets)).numpy()
+    want = np.concatenate([
+        _walk(m[:, :40 * 32], ia, ir, init),
+        _walk(m[:, 40 * 32:200 * 32], ia, ir),
+        _walk(m[:, 200 * 32:], ia, ir)], axis=1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_jacobi_plain_sweep_reproduces_true_carries():
+    """K2's plain version: a sweep started from the walk's own states at
+    the segment starts returns the next segment starts, and the full
+    sweep returns the walk, bit for bit (the fixed point is exact)."""
+    m = _bursts(8 * 512, G=2, seed=5)
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    walk = _walk(m, ia, ir)
+    G, S, seg = 2, 8, 512
+    m_t = torch.from_numpy(m).reshape(G, S, seg).permute(2, 0, 1).reshape(
+        seg, G * S).contiguous()
+    starts = np.concatenate([np.zeros((G, 1), np.float32),
+                             walk[:, seg - 1::seg][:, :-1]], axis=1)
+    co, att_t = pg.gain_jacobi_plain(m_t, torch.from_numpy(starts).reshape(
+        -1), ia, ir, True)
+    np.testing.assert_array_equal(co.numpy().reshape(G, S),
+                                  walk[:, seg - 1::seg])
+    att = att_t.reshape(seg, G, S).permute(1, 2, 0).reshape(G, S * seg)
+    np.testing.assert_array_equal(att.numpy(), walk)
+
+
+def test_gain_engine_converges_and_matches_reference():
+    """Program-like content: the Jacobi carries converge, the engine's
+    result is the walk bit for bit, and it matches the reference's Pallas
+    engine (interpreted) within atol 1e-5, median 0."""
+    from ame_tpu.ops import pydub_gain as ref
+    n = 1 << 15
+    m = _bursts(n)
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    npad = pg._pad_block(n)
+    S = pg._select_S(npad)
+    m_t = torch.nn.functional.pad(torch.from_numpy(m), (0, npad - n)).reshape(
+        3, S, npad // S).permute(2, 0, 1).reshape(npad // S, 3 * S)
+    _, ok, sweeps = pg._jacobi_carries(m_t.contiguous(), 3, S,
+                                       torch.zeros(3), ia, ir)
+    assert ok.all() and sweeps <= pg._RMAX
+    got = pg._gain_engine(torch.from_numpy(m), torch.zeros(3), ia, ir)
+    np.testing.assert_array_equal(got.numpy(), _walk(m, ia, ir))
+    want = np.stack([np.asarray(v) for v in ref.pydub_gain_multi(
+        [jnp.asarray(v) for v in m], ATTACK, RELEASE, interpret=True)])
+    _close_to_reference(got.numpy(), want)
+
+
+def test_gain_engine_falls_back_on_translation_content():
+    """Translation-only content (m = 10, attack 1e9: never saturates)
+    stalls the relaxation, which reports no convergence; the engine takes
+    the two-pass path, equal to the walk and to the reference."""
+    from ame_tpu.ops import pydub_gain as ref
+    n = 1 << 17
+    m = np.full((1, n), 10.0, np.float32)
+    ia, ir = pg._scal(1e9, RELEASE)
+    npad = pg._pad_block(n)
+    S = pg._select_S(npad)
+    m_t = torch.from_numpy(m).reshape(1, S, npad // S).permute(
+        2, 0, 1).reshape(npad // S, S).contiguous()
+    _, ok, sweeps = pg._jacobi_carries(m_t, 1, S, torch.zeros(1), ia, ir)
+    assert not ok.any() and sweeps < pg._RMAX         # the stall rule bailed
+    got = pg._gain_engine(torch.from_numpy(m), torch.zeros(1), ia, ir)
+    np.testing.assert_array_equal(got.numpy(), _walk(m, ia, ir))
+    want = np.asarray(ref.pydub_gain_multi([jnp.asarray(m[0])], 1e9, RELEASE,
+                                           interpret=True)[0])
+    np.testing.assert_array_equal(got.numpy()[0], want)
+
+
+def test_gain_engine_all_silent_early_out(monkeypatch):
+    """All-zero m from a zero state: zeros, and no kernel (plain or not)
+    runs; the reference returns zeros too."""
+    from ame_tpu.ops import pydub_gain as ref
+
+    def boom(*a, **k):
+        raise AssertionError("a kernel ran on all-silent input")
+
+    monkeypatch.setattr(pg, "_gain_engine_hot", boom)
+    m = np.zeros((3, 5000), np.float32)
+    got = pg._gain_engine(torch.from_numpy(m), torch.zeros(3), 0.1, 0.01)
+    assert not got.any()
+    want = ref.pydub_gain_multi([jnp.asarray(v) for v in m], ATTACK, RELEASE,
+                                interpret=True)
+    assert not any(np.asarray(w).any() for w in want)
+
+
+def test_pydub_gain_cpu_runs_the_walk():
+    m = _bursts(4096, G=2)
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    got = pg.pydub_gain(torch.from_numpy(m.T.copy()), ATTACK, RELEASE)
+    np.testing.assert_array_equal(got.numpy().T, _walk(m, ia, ir))
+    one = pg.pydub_gain(torch.from_numpy(m[0].copy()), ATTACK, RELEASE)
+    np.testing.assert_array_equal(one.numpy(), got.numpy()[:, 0])
+
+
+def _program(n, seed=0):
+    from tests.conftest import make_test_signal
+    x = make_test_signal("noise", n, SR, seed=seed) * 0.05
+    x[n // 3: 2 * n // 3] *= 12.0
+    return np.clip(x, -1, 1)
+
+
+def test_pydub_compress_exact_multi_matches_reference():
+    """Three bands through one engine pass; int16 outputs, held as
+    tests/test_compressor.py holds the reference to its oracle."""
+    from ame_tpu.ops.compressor import pydub_compress_exact_multi as ref
+    x = _program(1 << 14)
+    bands = [np.trunc(x * s * 32767.0).astype(np.float32)
+             for s in (1.0, 0.7, 0.4)]
+    th, ra = [-20.0, -22.0, -25.0], [4.0, 3.0, 6.0]
+    want = ref([jnp.asarray(b) for b in bands], float(SR), th, ra)
+    got = compressor.pydub_compress_exact_multi(
+        [torch.from_numpy(b) for b in bands], SR, th, ra)
+    for g, w in zip(got, want):
+        diff = np.abs(g.numpy() - np.asarray(w))
+        assert np.median(diff) == 0.0
+        assert diff.max() <= 64, diff.max()
+        assert (diff > 2).mean() < 0.02
+    single = compressor.pydub_compress_exact(torch.from_numpy(bands[0]), SR,
+                                             th[0], ra[0])
+    np.testing.assert_array_equal(single.numpy(), got[0].numpy())
+
+
+def test_multiband_compat_matches_reference_and_oracle():
+    """The compat 3-band stage (Q4 subtractive mid, Q5, Q7) vs ame_tpu's
+    and vs the float64 reference oracle, in the int16 domain, with the
+    bounds of tests/test_compressor.py plus median 0."""
+    from ame_tpu.graph.multiband import multiband_compat as ref
+    x = _program(1 << 15)
+    xq = oracles.int16_roundtrip(x).astype(np.float32)
+    th, ra = [-25.0, -20.0, -15.0], [6.0, 3.0, 4.0]
+    got = multiband.multiband_compat(torch.from_numpy(xq), SR, th, ra).numpy()
+    want = np.asarray(ref(jnp.asarray(xq), SR, jnp.asarray(th),
+                          jnp.asarray(ra), exact=True))
+    settings = {"low_thresh": -25.0, "low_ratio": 6.0,
+                "mid_thresh": -20.0, "mid_ratio": 3.0,
+                "high_thresh": -15.0, "high_ratio": 4.0}
+    oracle = oracles.multiband_compress(xq.astype(np.float64), SR, settings)
+    for other in (want * 32768.0, oracle):
+        diff = np.abs(got * 32768.0 - other)
+        assert np.median(diff) == 0.0
+        assert diff.max() <= 96, diff.max()
+        assert (diff > 4).mean() < 0.05
