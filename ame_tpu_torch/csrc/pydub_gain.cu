@@ -17,31 +17,40 @@
 // and agree bit for bit; the Jacobi acceptance test (carries reproduced
 // bit for bit) means what it means for the sequential walk.
 //
-// What bounds them, and what the design does about it:
-//   gain_p1: one thread per chain walks the whole track in order — G
-//     threads, N dependent steps each. It is latency-bound by design (the
-//     fallback path); the 32 loads of the next group are independent of the
-//     state, so they are issued before the current group's chain runs. It
-//     zeroes the state at flagged group starts (resets may be null) and
-//     writes the state before every 32-sample group: starts [G, ceil(N/32)].
-//     The ragged last group needs no walk: its start state is all pass 2
-//     reads.
-//   gain_p2: one thread per (chain, 32-sample group) re-runs its group from
-//     the pass-1 start state and writes att [G, N]. The TPU transposed
-//     [512, 32] tiles on the MXU to put groups on lanes; here a thread is a
-//     group and needs no transpose.
+// What each does:
 //   gain_jacobi: one thread per (chain, segment) walks its segment of
 //     seg_len samples from its carry-in and writes its carry-out; the full
 //     sweep also writes att. m arrives time-major [seg_len, G*S] (the host
-//     transposes it once), so neighbouring threads read neighbouring
-//     addresses at every step and the loads coalesce. The carry refresh,
-//     identity bridging, bit-exact acceptance and stall rule stay on the
-//     host (ops/pydub_gain.py), one synchronisation per sweep.
+//     transposes it once), so a row of 32 lanes is 128 contiguous bytes.
+//     The carry refresh, identity bridging, bit-exact acceptance and stall
+//     rule stay on the host (ops/pydub_gain.py), one synchronisation per
+//     sweep.
 //
-// Bytes are not the limit at these sizes: each kernel reads m once and
-// writes its output once, but the walk is a chain of 5 dependent f32 ops
-// per sample per thread. Shared-memory staging of m for gain_p1/gain_p2 and
-// more segments per chain are left for later work.
+// What bounds them on an H100:
+//   gain_p1 is latency-bound by design (G threads, N dependent steps).
+//   gain_p2 and gain_jacobi read m once and write their output once; the
+//   walk is a chain of about three dependent f32 operations a step (add or
+//   sub, min or max, select), ~25 us for gain_jacobi's 4096 steps, so once
+//   the loads stream, bytes bound gain_jacobi: 0.030 ms a carry sweep and
+//   0.060 ms a full sweep at [3, 2^23] (3.35 TB/s), and the per-lane
+//   chain is the floor under the carry sweep. So every SM needs lanes and
+//   the loads must run ahead of the walk: each warp of 32 lanes has its
+//   own block (192 blocks at [3, 2^23]) and a ring of
+//   STAGES shared-memory stages of [ROWS steps x 32 lanes] (JacRing), filled
+//   by 16-byte cp.async copies STAGES-1 stages ahead of the walk, which
+//   reads shared memory. The full sweep writes att over m in the stage and
+//   stores the stage with 16-byte stores; the carry sweep writes
+//   carry_out only. Rows past seg_len are zero-filled: m == 0 leaves the
+//   state unchanged, so the walk needs no mask.
+//
+// gain_p1's 32 loads of the next group are independent of the state, so
+// they are issued before the current group's chain runs. It zeroes the
+// state at flagged group starts (resets may be null) and writes the state
+// before every 32-sample group: starts [G, ceil(N/32)]; the ragged last
+// group needs no walk, its start state is all pass 2 reads. gain_p2 runs
+// one thread per (chain, 32-sample group) from the pass-1 start state and
+// writes att [G, N]; the TPU transposed [512, 32] tiles on the MXU to put
+// groups on lanes, here a thread is a group and needs no transpose.
 
 #include <cuda_runtime.h>
 
@@ -116,28 +125,94 @@ __global__ void gain_p2(const float* __restrict__ m,
   }
 }
 
-__global__ void gain_jacobi(const float* __restrict__ m_t,
-                            const float* __restrict__ carry_in,
-                            float* __restrict__ carry_out,
-                            float* __restrict__ att_t, long long seg_len,
-                            int lanes, float ia, float ir) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= lanes) return;
-  float att = carry_in[s];
-  // unrolled so that the loads of several steps, which do not depend on
-  // the state, are in flight together
-  if (att_t != nullptr) {
-#pragma unroll 16
-    for (long long t = 0; t < seg_len; ++t) {
-      att = gain_update(att, m_t[t * lanes + s], ia, ir);
-      att_t[t * lanes + s] = att;
-    }
-  } else {
-#pragma unroll 16
-    for (long long t = 0; t < seg_len; ++t)
-      att = gain_update(att, m_t[t * lanes + s], ia, ir);
+#define JAC_LANES 32     // lanes (segments) per block: one warp
+
+// Steps per stage and stages in the ring: the carry sweep walks 64-step
+// stages (fewer waits per step), the full sweep, which also stores each
+// stage, 32-step ones.
+template <bool FULL>
+struct JacRing {
+  static constexpr int ROWS = FULL ? 32 : 64;
+  static constexpr int STAGES = FULL ? 8 : 5;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Stage k of this block: rows t0 = k*JAC_ROWS.. of lanes l0..l0+31, into
+// st [JAC_ROWS][JAC_LANES]; out-of-range rows and lanes are zero-filled.
+template <int JAC_ROWS>
+__device__ __forceinline__ void jac_load(float* st, const float* m_t,
+                                         long long t0, long long seg_len,
+                                         int l0, int lanes) {
+#pragma unroll
+  for (int i = 0; i < JAC_ROWS / 4; ++i) {   // 8 chunks of 16 bytes a row
+    const int e = threadIdx.x + JAC_LANES * i, r = e >> 3, q = e & 7;
+    const long long t = t0 + r;
+    const int l = l0 + 4 * q;
+    const bool v = t < seg_len && l < lanes;
+    cp_async16(st + r * JAC_LANES + 4 * q, v ? m_t + t * lanes + l : m_t, v);
   }
-  carry_out[s] = att;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <bool FULL>
+__global__ void __launch_bounds__(JAC_LANES)
+    gain_jacobi(const float* __restrict__ m_t,
+                const float* __restrict__ carry_in,
+                float* __restrict__ carry_out, float* __restrict__ att_t,
+                long long seg_len, int lanes, float ia, float ir) {
+  constexpr int JAC_ROWS = JacRing<FULL>::ROWS;
+  constexpr int JAC_STAGES = JacRing<FULL>::STAGES;
+  __shared__ __align__(16) float ring[JAC_STAGES][JAC_ROWS * JAC_LANES];
+  const int l0 = blockIdx.x * JAC_LANES, s = l0 + threadIdx.x;
+  const long long nst = (seg_len + JAC_ROWS - 1) / JAC_ROWS;
+  for (int k = 0; k < JAC_STAGES - 1; ++k) {
+    if (k < nst) {
+      jac_load<JAC_ROWS>(ring[k], m_t, (long long)k * JAC_ROWS, seg_len,
+                         l0, lanes);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+  }
+  float att = s < lanes ? carry_in[s] : 0.f;
+  for (long long k = 0; k < nst; ++k) {
+    // stage k has landed once at most JAC_STAGES-2 groups are pending
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(JAC_STAGES - 2)
+                 : "memory");
+    __syncthreads();              // all copies seen; stage k-1 is free
+    const long long kn = k + JAC_STAGES - 1;
+    if (kn < nst) {
+      jac_load<JAC_ROWS>(ring[kn % JAC_STAGES], m_t, kn * JAC_ROWS,
+                         seg_len, l0, lanes);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    float* st = ring[k % JAC_STAGES];
+#pragma unroll
+    for (int r = 0; r < JAC_ROWS; ++r) {
+      att = gain_update(att, st[r * JAC_LANES + threadIdx.x], ia, ir);
+      if (FULL) st[r * JAC_LANES + threadIdx.x] = att;
+    }
+    if (FULL) {
+      __syncthreads();            // the stage holds att
+      const long long t0 = k * JAC_ROWS;
+#pragma unroll
+      for (int i = 0; i < JAC_ROWS / 4; ++i) {
+        const int e = threadIdx.x + JAC_LANES * i, r = e >> 3, q = e & 7;
+        const int l = l0 + 4 * q;
+        if (t0 + r < seg_len && l < lanes)
+          *reinterpret_cast<float4*>(att_t + (t0 + r) * lanes + l) =
+              *reinterpret_cast<const float4*>(st + r * JAC_LANES + 4 * q);
+      }
+    }
+  }
+  if (s < lanes) carry_out[s] = att;
 }
 
 // m [G, n] chain-major; resets [ceil(n/32)] or null; init [G];
@@ -165,16 +240,23 @@ extern "C" int gain_p2_f32(const float* m, const float* starts, float* att,
 }
 
 // m_t [seg_len, lanes] time-major (lane = g*S + s); carry_in, carry_out
-// [lanes]; att_t [seg_len, lanes] or null (a carry sweep).
+// [lanes]; att_t [seg_len, lanes] or null (a carry sweep). The 16-byte
+// copies need lanes % 4 == 0 and 16-byte aligned m_t and att_t.
 extern "C" int gain_jacobi_f32(const float* m_t, const float* carry_in,
                                float* carry_out, float* att_t,
                                long long seg_len, int lanes, float ia,
                                float ir, void* stream) {
-  if (seg_len < 1 || lanes < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  gain_jacobi<<<(lanes + threads - 1) / threads, threads, 0,
-                (cudaStream_t)stream>>>(m_t, carry_in, carry_out, att_t,
-                                        seg_len, lanes, ia, ir);
+  if (seg_len < 1 || lanes < 1 || lanes % 4 != 0 || (size_t)m_t % 16 != 0 ||
+      (size_t)att_t % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((lanes + JAC_LANES - 1) / JAC_LANES);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (att_t)
+    gain_jacobi<true><<<grid, JAC_LANES, 0, st>>>(
+        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir);
+  else
+    gain_jacobi<false><<<grid, JAC_LANES, 0, st>>>(
+        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir);
   return (int)cudaGetLastError();
 }
 

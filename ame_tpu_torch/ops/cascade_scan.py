@@ -3,16 +3,28 @@ kernel K5 (``ame_tpu/ops/pallas_scan.py::_kernel``, driven by
 ``sosfilt_pallas``).
 
 The kernel (``ame_tpu_torch/csrc/cascade_scan.cu``) runs a k <= 8 section
-biquad cascade per channel in f32 as a three-phase block scan: block end
-states from zero state, a per-channel carry walk c_{b+1} = A^TB c_b + e_b,
-and a re-run of every block from its carry that writes y (and zf from the
-last block). Any N: the ragged last block is masked in the kernel.
+biquad cascade per channel in f32. What bounds it on an H100 is bytes (x
+in, y out: 0.040 ms at 2^23 stereo), provided enough independent chains
+keep every SM busy, so it cuts time into sub-blocks of ``_SUB`` = 64
+samples, one thread each (2^18 chains at 2^23 stereo), staged through
+shared memory in tiles of P sub-blocks x CB channels (``_geometry``):
+
+  1. each thread walks its sub-block from zero state; a log-depth scan
+     over the tile's sub-blocks gives the in-tile prefixes;
+  2. one block per channel stages the tile totals and one warp scans
+     them, c_{b+1} = A^T c_b + E_b from zi: each lane folds a run of
+     tiles, a shuffle scan over the lanes joins the runs;
+  3. each thread re-runs its sub-block from S_{j-1} + A^(SUB*j) c_b and the
+     tile is stored coalesced; zf comes from the last sample's thread.
+
+Any N: the ragged edge is masked in the kernel.
 
 The host side here designs everything the kernel reads in float64: the
 per-section forms (``_kernel_sections``: coupled for complex poles,
-triangular for real ones), A^TB in the same basis, and the scipy zi/zf
-transforms. They travel to the kernel by value as
-kernel parameters, so nothing is uploaded per call.
+triangular for real ones) and the scipy zi/zf transforms travel by value
+as kernel parameters; the powers A^(SUB*2^l) and A^(T*2^l) of the
+f32-rounded section rows, in the same basis, are rounded to f32 once and
+kept on the device per (cascade, tile), so nothing is uploaded per call.
 
 ``sosfilt_cuda`` launches the kernel for CUDA tensors and raises for any
 other; the plain PyTorch version is ``ops/tile_conv.sosfilt_tileconv``.
@@ -30,10 +42,20 @@ import torch
 from ame_tpu_torch.ops import _build
 from ame_tpu_torch.ops.scan_iir import _compose_sections, _section_forms
 
-# Time samples per block. The same block length K5 used on the TPU; at
-# 2^23 samples it gives 2048 blocks per channel for the carry walk.
-_TB = 4096
+_SUB = 64           # samples per thread (SUB in cascade_scan.cu)
+_MAX_THREADS = 256  # threads per tile block (P * CB)
+_LOG_CARRY = 9      # the carry scan's powers A^(T*2^l), l <= 9
 _MAX_SECTIONS = 8
+
+
+def _geometry(C: int):
+    """(CB, logP): a tile holds CB <= 4 channels and P = 2^logP >= _SUB
+    sub-blocks of each, P * CB <= 256 threads."""
+    CB = min(C, 4)
+    logP = 8
+    while (1 << logP) * CB > _MAX_THREADS:
+        logP -= 1
+    return CB, logP
 
 
 def _kernel_sections(sos: np.ndarray):
@@ -43,7 +65,7 @@ def _kernel_sections(sos: np.ndarray):
     Rounding the companion block to f32 can push a pole that sits just
     inside the unit circle outside it: the dynamic-mode K-weighting's
     high-pass pair (0.9999916, 0.9988645 at 44.1 kHz) becomes 1.00005, and
-    the kernel's per-sample walk and its A^tb carry diverge. With
+    the kernel's per-sample walk and its powers diverge. With
     z = s2 + q·s1, q a real pole (α when the pair is within 1e-12 of
     double), the block is [[-a1 - q, 1], [-(q² + a1·q + a2), q]]: upper
     triangular, its diagonal the two poles, so the f32 rows keep them where
@@ -64,31 +86,51 @@ def _kernel_sections(sos: np.ndarray):
 
 
 @functools.lru_cache(maxsize=256)
-def _kernel_params(sos_bytes: bytes, k: int, tb: int) -> np.ndarray:
+def _kernel_params(sos_bytes: bytes, k: int) -> np.ndarray:
     """float32 parameter block in the layout ``cascade_scan_f32`` reads:
-    k rows (b0, bb1, bb2, a11, a12, a21, a22), A^tb [2k, 2k], Vi, Vf.
-
-    A^tb is the float64 power of the cascade the kernel actually runs, i.e.
-    of the f32-rounded section rows, so the block carry continues exactly
-    the recurrence each block ran."""
+    k rows (b0, bb1, bb2, a11, a12, a21, a22), Vi [k, 2, 2], Vf [k, 2, 2]."""
     sos = np.frombuffer(sos_bytes, np.float64).reshape(k, 6)
     sec, Vf, Vi = _kernel_sections(sos)
-    sec = sec.astype(np.float32)
-    A = _compose_sections(sec)[0]
-    with np.errstate(over="ignore", invalid="ignore", under="ignore"):
-        AT = np.linalg.matrix_power(A, tb)
-    AT = np.nan_to_num(AT, nan=0.0, posinf=0.0, neginf=0.0)
-    return np.concatenate([sec.ravel(), AT.ravel(), Vi.ravel(),
+    return np.concatenate([sec.ravel(), Vi.ravel(),
                            Vf.ravel()]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _power_table(sos_bytes: bytes, k: int, logP: int) -> np.ndarray:
+    """float32 [logP + _LOG_CARRY + 1, 2k, 2k]: A^(SUB*2^l) for l < logP
+    (the in-tile scan and start states), then A^(T*2^l) for
+    l <= _LOG_CARRY, T = SUB*2^logP (the carry scan across tiles).
+
+    A is the cascade of the f32-rounded section rows the kernel walks, in
+    its basis, so each power continues exactly the recurrence the walks
+    ran; the powers are squared in float64 and rounded to f32 once."""
+    sos = np.frombuffer(sos_bytes, np.float64).reshape(k, 6)
+    sec = _kernel_sections(sos)[0].astype(np.float32)
+    A = _compose_sections(sec)[0]
+    out = []
+    with np.errstate(over="ignore", invalid="ignore", under="ignore"):
+        M = np.linalg.matrix_power(A, _SUB)
+        for _ in range(logP + _LOG_CARRY + 1):
+            out.append(M)
+            M = M @ M
+    table = np.nan_to_num(np.stack(out), nan=0.0, posinf=0.0, neginf=0.0)
+    return table.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_powers(sos_bytes: bytes, k: int, logP: int,
+                   device: torch.device) -> torch.Tensor:
+    """``_power_table`` on the card, uploaded once per cascade and tile."""
+    return torch.from_numpy(_power_table(sos_bytes, k, logP)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build("cascade_scan")["path"]))
     lib.cascade_scan_f32.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p, ctypes.c_void_p])
+        [ctypes.c_void_p] * 8
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4
+        + [ctypes.c_void_p, ctypes.c_void_p])
     lib.cascade_scan_f32.restype = ctypes.c_int
     lib.cascade_scan_error.argtypes = [ctypes.c_int]
     lib.cascade_scan_error.restype = ctypes.c_char_p
@@ -118,21 +160,29 @@ def sosfilt_cuda(sos, x: torch.Tensor, zi: torch.Tensor | None = None):
                            or not zi.is_contiguous()):
         raise ValueError(f"zi must be a contiguous float32 [{k}, {C}, 2] "
                          f"tensor on {x.device}")
-    params = _kernel_params(sos64.tobytes(), k, _TB)
+    key = sos64.tobytes()
+    CB, logP = _geometry(C)
+    params = _kernel_params(key, k)
+    powers = _device_powers(key, k, logP, x.device)
     lib = _lib()
-    nb = -(-N // _TB)
+    nb = -(-N // (_SUB << logP))
+    D = 2 * k
     y = torch.empty_like(x)
-    zf = torch.empty((k, C, 2), dtype=x.dtype, device=x.device)
-    e = torch.empty((max(nb - 1, 1), C, 2 * k), dtype=x.dtype,
-                    device=x.device)
-    cst = torch.empty((nb, C, 2 * k), dtype=x.dtype, device=x.device)
+    # one scratch allocation: zf [k, C, 2], S [nb, C, D, P], E, cst [nb, C, D]
+    scratch = torch.empty(k * C * 2 + nb * C * D * ((1 << logP) + 2),
+                          dtype=x.dtype, device=x.device)
+    zf = scratch[:k * C * 2].view(k, C, 2)
+    ptr, step = scratch.data_ptr(), scratch.element_size()
+    S = ptr + k * C * 2 * step
+    E = S + nb * C * D * (1 << logP) * step
+    cst = E + nb * C * D * step
+    # the kernels launch on x's device (a no-op switch on the current one)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cascade_scan_f32(
             x.data_ptr(), y.data_ptr(),
-            None if zi is None else zi.data_ptr(), zf.data_ptr(),
-            e.data_ptr(), cst.data_ptr(), N, C, k, _TB,
-            params.ctypes.data, stream)
+            None if zi is None else zi.data_ptr(), zf.data_ptr(), S, E, cst,
+            powers.data_ptr(), N, C, k, CB, logP, params.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"cascade_scan_f32 launch failed: CUDA error "
                            f"{err} ({lib.cascade_scan_error(err).decode()})")

@@ -199,13 +199,13 @@ def gain_p2_plain(m: torch.Tensor, starts: torch.Tensor, inv_a: float,
 
 def gain_jacobi_cuda(m_t: torch.Tensor, carry: torch.Tensor, inv_a: float,
                      inv_r: float, full: bool):
-    """K2's counterpart: one sweep. m_t [seg_len, lanes] time-major; carry
-    [lanes] carry-ins. Returns (carry-outs [lanes], att_t [seg_len, lanes]
-    when ``full`` else None)."""
+    """K2's counterpart: one sweep. m_t [seg_len, lanes] time-major, lanes
+    a multiple of 4 (G*S, S >= 8); carry [lanes] carry-ins. Returns
+    (carry-outs [lanes], att_t [seg_len, lanes] when ``full`` else None)."""
     _check("gain_jacobi_cuda", m_t, 2)
     _check("gain_jacobi_cuda", carry, 1)
     seg_len, lanes = m_t.shape
-    if carry.shape[0] != lanes or seg_len == 0:
+    if carry.shape[0] != lanes or seg_len == 0 or lanes % 4:
         raise ValueError(f"gain_jacobi_cuda: m_t {tuple(m_t.shape)}, carry "
                          f"{tuple(carry.shape)}")
     co = torch.empty_like(carry)

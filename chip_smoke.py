@@ -10,24 +10,23 @@ failure raises and the script exits non-zero without the final line:
   1. device: the card's name and nvidia-smi's name / power limit line;
   2. build: compiles ame_tpu_torch/csrc/{cascade_scan,wedge_env,pydub_gain}.cu
      from the checkout, one nvcc each, all started together;
-  3. kernel vs plain: the quality chain's three cascades (analog shelves
-     k=2, 4-band EQ k=4, K-weighting k=2) on [2^23 + 1234, 2] noise with a
-     non-zero zi, kernel against the plain tile-conv version on the card
-     (max abs error <= 1e-4 for y and zf), with both times; plus the Q14
-     Nyquist-clamped order-4 bandpass at 8 kHz (kernel within 1e-4);
+  3. K5 kernel vs plain: the ten main-path cascades (quality: analog
+     shelves k=2, 4-band EQ k=4, K-weighting k=2; compat: k=1 shelf cores,
+     the k=4 presence band, the k=2 crossovers, the k=3 dynamic-mode
+     K-weighting) and the Q14 Nyquist-clamped order-4 bandpass at 8 kHz,
+     on [2^23 + 1234, 2] noise from a non-zero zi, kernel against the
+     plain tile-conv version on the card (max abs error <= 1e-4 for y and
+     zf); kernel and plain times, the kernel's share of its bound, and its
+     time split over its launches (torch.profiler);
   4. main path: master_file on a 2^23-sample 44.1 kHz stereo WAV with the
      flagship settings; checks the written master (length, finite, ceiling,
      loudness within 0.5 LU of -14) and that the main path made exactly 3
      kernel launches; device-chain and file-to-file times as x realtime;
   5. card vs CPU: master_graph on the first 2^20 samples on both devices
      (max abs difference <= 2e-4, gain difference <= 0.01 dB);
-  6. the compat chain's seven cascades (k=1 shelf cores, the k=4 presence
-     band, the k=2 crossovers, the k=3 dynamic-mode K-weighting) through
-     the cascade kernel vs its plain version on [2^23 + 1234, 2] noise
-     (within 1e-4); then the wedge envelope (K1) vs its plain 12-scan form
-     on the card, both directions, on the compat depths of
-     [2^23 + 1234, 2] noise at 0.5 (envelope within 1e-5, limited output
-     within 1/32768);
+  6. the wedge envelope (K1) vs its plain 12-scan form on the card, both
+     directions, on the compat depths of [2^23 + 1234, 2] noise at 0.5
+     (envelope within 1e-5, limited output within 1/32768);
   7. gain kernels (K2 Jacobi sweep, K3 pass 1, K4 pass 2) vs the plain
      sequential walk on the card, bit for bit: (a) K2 on 2^17 bursts and
      freeze runs,
@@ -36,6 +35,8 @@ failure raises and the script exits non-zero without the final line:
      max-attenuations at 2^23, and on those inputs each kernel against its
      plain version: K2's full sweep from the relaxed carries, K4, and K3's
      start states against the plain sweep's states at the group bounds;
+     K2's carry sweep (no att written) against its plain version too, and
+     its carry and full sweeps timed apart;
   8. compat main path: master_file (mode="compat", multiband) on a 2^23
      gated noise + 100 Hz WAV that takes every band over its threshold;
      K1 must launch twice, K5 seven times, K2 at least once and K3 / K4
@@ -47,6 +48,11 @@ failure raises and the script exits non-zero without the final line:
      max abs <= 2/32768, loudnorm gain_db / output_i within 0.01 dB;
  10. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+``python3 chip_smoke.py --kernel-times [ROOT]`` runs phase 3, K2's sweep
+times and the two device chains only, with the ame_tpu_torch package under
+ROOT (default: this checkout; e.g. an unpacked parent commit), so that two
+trees can be timed in turns on one card.
 
 Every kernel's launch count is set to 0 just before each main path and read
 just after it. Times are medians of 3 warm runs, taken with
@@ -85,13 +91,17 @@ COMPAT_LUFS_TOL = 1.0          # tests/test_chain.py:176's allowance
 COMPAT_TARGET = -14.0 + 20.0 * math.log10(1.0 / 0.98)   # auto-levelled
 CEILING = 0.98 + 1e-5
 REPS = 3
+KERNEL_CALLS = 10              # calls in a row per timed kernel run
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS = 67e12              # H100 SXM, f32 outside the tensor cores
 ATTACK, RELEASE = 220.5, 2205.0   # the compressor's 5 / 50 ms at 44.1 kHz
 
 
-def _cuda_ms(fn) -> float:
-    """Median device time of REPS warm runs of fn, in ms."""
+def _cuda_ms(fn, calls: int = 1) -> float:
+    """Median over REPS warm runs of the device time of `calls` calls of fn
+    in a row, per call, in ms. With calls > 1 the host enqueues the next
+    call while the card runs the last one, so a kernel's time is not
+    stretched by its wrapper's host time."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -99,11 +109,25 @@ def _cuda_ms(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def _host_us(fn, calls: int = KERNEL_CALLS) -> float:
+    """Host microseconds per call of fn (its enqueue time: no sync inside),
+    over `calls` calls after a warm one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def _host_s(fn) -> float:
@@ -166,29 +190,125 @@ def phase_build() -> None:
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(_build.build, names))
     for info in infos:
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers",
-                                           info["ptxas"])]
-        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill",
-                                                info["ptxas"]))
-        print(f"build: {info['path'].name} in {info['seconds']:.2f} s; "
-              f"ptxas: {len(regs)} kernels, at most {max(regs, default=0)} "
-              f"registers, {spills} bytes spilled")
+        print(f"build: {info['path'].name} in {info['seconds']:.2f} s")
+        for name, regs, spills in _ptxas_report(info["ptxas"]):
+            print(f"  ptxas {name}: {regs} registers, {spills} bytes "
+                  f"spilled")
 
 
-def phase_kernel() -> dict:
+def _ptxas_report(text: str) -> list:
+    """(kernel, registers, spill store + load bytes) from nvcc -Xptxas -v:
+    the kernel's mangled name shortened to name<template int>."""
+    out = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        m = re.match(r"_Z(\d+)", mangled)
+        name = (mangled[m.end():m.end() + int(m.group(1))] if m
+                else mangled)
+        name += "".join(f"<{a}>" for a in re.findall(r"L[ib](\d+)E",
+                                                     mangled))
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", chunk)
+        out.append((name, int(regs.group(1)) if regs else 0,
+                    int(spills.group(1)) + int(spills.group(2))
+                    if spills else 0))
+    return out
+
+
+def _quality_cascades() -> dict:
+    """The quality main path's three cascades (flagship settings)."""
     from ame_tpu_torch.dsp import design
-    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
     from ame_tpu_torch.ops.eq import eq_quality_sos
     from ame_tpu_torch.ops.saturate import analog_sos
-    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
-
     s = FLAGSHIP
-    cascades = {
+    return {
         "analog_shelves_k2": analog_sos(SR, s["analog_character"]),
         "eq_k4": eq_quality_sos(SR, s["bass_boost"], 0.0,
                                 s["presence_boost"], 0.0),
         "k_weighting_k2": design.k_weighting_sos(SR),
     }
+
+
+def _compat_cascades() -> dict:
+    """The compat main path's seven cascades (the seven launches of a compat
+    master): k=1 shelf cores, the k=4 presence band, the k=2 crossovers,
+    the k=3 dynamic-mode K-weighting."""
+    from ame_tpu_torch import config as C
+    from ame_tpu_torch.dsp import design
+
+    def shelf(hz, kind):
+        return design.ba_to_sos_biquad(*design.butter_ba(2, hz / (SR / 2),
+                                                         kind))
+    return {
+        "analog_low_shelf_k1": shelf(C.ANALOG_LOW_SHELF_HZ, "low"),
+        "analog_high_shelf_k1": shelf(C.ANALOG_HIGH_SHELF_HZ, "high"),
+        "bass_shelf_k1": shelf(C.BASS_SHELF_HZ, "low"),
+        "presence_band_k4": design.reference_peak_band_sos(
+            SR, C.PRESENCE_PEAK_HZ),
+        "crossover_low_k2": design.butter_sos(4, C.MB_LOW_CROSSOVER_HZ,
+                                              "lowpass", fs=SR),
+        "crossover_high_k2": design.butter_sos(4, C.MB_HIGH_CROSSOVER_HZ,
+                                               "highpass", fs=SR),
+        "k_weighting_dynamic_k3": design.k_weighting_dynamic_sos(SR),
+    }
+
+
+def _profile_ms(fn) -> dict:
+    """Device ms per call of fn, by kernel name, from torch.profiler over
+    REPS warm calls (empty when the profiler sees no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = e.self_device_time_total
+        if e.device_type == DeviceType.CUDA and t > 0:
+            name = re.sub(r"^void |\(.*$", "", e.key)
+            out[name] = out.get(name, 0.0) + t / 1e3 / REPS
+    return out
+
+
+def _chain_busy(name: str, fn, chain_ms: float) -> dict:
+    """The device's busy time in one chain run (kernel time summed by
+    torch.profiler), its idle share of the event-timed chain_ms, and the
+    five kernels that take most of it."""
+    per_kernel = _profile_ms(fn)
+    busy_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{name} chain on the device: busy {busy_ms:.3f} ms of "
+          f"{chain_ms:.3f} ms (idle share {1 - busy_ms / chain_ms:.3f}); "
+          f"top kernels (ms): "
+          + ", ".join(f"{k[:60]} {v:.4f}" for k, v in top))
+    return {"busy_ms": busy_ms, "idle_share": 1 - busy_ms / chain_ms,
+            "top": top}
+
+
+def _cascade_bound(k: int, n: int, c: int):
+    return _bound(2 * n * c * 4, 12 * k * n * c)     # x in, y out
+
+
+def phase_cascades() -> list:
+    """K5 on the ten main-path cascades (3 quality, 7 compat) and the Q14
+    band: kernel vs plain tile-conv on [2^23 + 1234, 2] noise from a
+    non-zero zi (y and zf within 1e-4), kernel and plain times, and the
+    kernel's time split over its launches (torch.profiler)."""
+    from ame_tpu_torch.dsp import design
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
+
+    cascades = {**_quality_cascades(), **_compat_cascades(),
+                # quirk Q14: the presence band's upper edge clamps next to
+                # Nyquist at 8 kHz, so its top pole pair sits within ~1e-6
+                # of z = -1
+                "q14_bandpass_k4_8khz": design.reference_peak_band_sos(
+                    8000.0, 4000.0)}
     rng = np.random.default_rng(0)
     x = torch.from_numpy(
         (0.3 * rng.standard_normal((N_KERNEL, 2))).astype(np.float32)).cuda()
@@ -208,26 +328,25 @@ def phase_kernel() -> dict:
         if not (err_y <= KERNEL_TOL and err_zf <= KERNEL_TOL):
             raise AssertionError(f"{name}: kernel vs plain y {err_y:.3e}, "
                                  f"zf {err_zf:.3e} > {KERNEL_TOL}")
-        ms = _cuda_ms(lambda: sosfilt_cuda(sos, x, zi))
+        del y_k, y_p
+        ms = _cuda_ms(lambda: sosfilt_cuda(sos, x, zi), KERNEL_CALLS)
+        one_ms = _cuda_ms(lambda: sosfilt_cuda(sos, x, zi))
+        host_us = _host_us(lambda: sosfilt_cuda(sos, x, zi))
         plain_ms = _cuda_ms(lambda: sosfilt_tileconv(sos, x, zi))
-        rows.append({"cascade": name, "k": int(sos.shape[0]),
-                     "max_abs_err_y": err_y, "max_abs_err_zf": err_zf,
-                     "ms": ms, "plain_ms": plain_ms})
+        phases = _profile_ms(lambda: sosfilt_cuda(sos, x, zi))
+        k = int(sos.shape[0])
+        bound = _cascade_bound(k, N_KERNEL, 2)
+        rows.append({"cascade": name, "k": k, "max_abs_err_y": err_y,
+                     "max_abs_err_zf": err_zf, "ms": ms,
+                     "one_call_ms": one_ms, "host_us": host_us,
+                     "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_share": bound[0] / ms, "phase_ms": phases})
         print(f"kernel {name}: |y| err {err_y:.3e}, |zf| err {err_zf:.3e}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"[{N_KERNEL}, 2]")
-    # quirk Q14: the presence band's upper edge clamps next to Nyquist at
-    # 8 kHz, so its top pole pair sits within ~1e-6 of z = -1
-    q14 = design.reference_peak_band_sos(8000.0, 4000.0)
-    xq = x[: 1 << 20]
-    err_q14 = (sosfilt_cuda(q14, xq)[0]
-               - sosfilt_tileconv(q14, xq)[0]).abs().max().item()
-    print(f"kernel q14_bandpass_k4 at 8 kHz: |y| err {err_q14:.3e}")
-    if not err_q14 <= KERNEL_TOL:
-        raise AssertionError(f"Q14 bandpass: kernel vs plain {err_q14:.3e}")
-    nbytes = sum(2 * N_KERNEL * 2 * 4 for _ in rows)     # x in, y out
-    flops = sum(12 * r["k"] * N_KERNEL * 2 for r in rows)
-    return {"rows": rows, "bound": _bound(nbytes, flops)}
+              f"kernel {ms:.4f} ms ({bound[0] / ms:.1%} of its bound; one "
+              f"call alone {one_ms:.4f} ms, host {host_us:.1f} us a call), "
+              f"plain {plain_ms:.4f} ms [{N_KERNEL}, 2]; launches (ms): "
+              + ", ".join(f"{n} {t:.4f}" for n, t in phases.items()))
+    return rows
 
 
 def phase_main(tmp: str) -> dict:
@@ -266,6 +385,8 @@ def phase_main(tmp: str) -> dict:
         raise AssertionError(f"master measures {out_i} LUFS, target -14")
 
     chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
+    busy = _chain_busy("quality", lambda: master_graph(x, SR, settings),
+                       chain_ms)
     file_s = _host_s(lambda: master_file(src, dst, settings, device="cuda"))
     stages: dict = {}
     master_graph(x, SR, settings, timer=stages)
@@ -280,6 +401,7 @@ def phase_main(tmp: str) -> dict:
     print("stages (ms): " + ", ".join(f"{k} {v * 1e3:.3f}"
                                       for k, v in stages.items()))
     return {"launches": launches, "counts": counts, "chain_ms": chain_ms,
+            "busy": busy,
             "file_s": file_s, "out_i": out_i, "peak": peak, "stages": stages}
 
 
@@ -306,44 +428,6 @@ def phase_parity() -> dict:
 # ---------------------------------------------------------------------------
 # Compat chain: K1 (wedge_env), K2 (gain_jacobi), K3 (gain_p1), K4 (gain_p2)
 # ---------------------------------------------------------------------------
-
-def phase_compat_kernel() -> float:
-    """K5's counterpart on the compat chain's own cascades (the seven
-    launches of a compat master), kernel vs plain on the card."""
-    from ame_tpu_torch import config as C
-    from ame_tpu_torch.dsp import design
-    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
-    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
-
-    def shelf(hz, kind):
-        return design.ba_to_sos_biquad(*design.butter_ba(2, hz / (SR / 2),
-                                                         kind))
-    cascades = {
-        "analog_low_shelf_k1": shelf(C.ANALOG_LOW_SHELF_HZ, "low"),
-        "analog_high_shelf_k1": shelf(C.ANALOG_HIGH_SHELF_HZ, "high"),
-        "bass_shelf_k1": shelf(C.BASS_SHELF_HZ, "low"),
-        "presence_band_k4": design.reference_peak_band_sos(
-            SR, C.PRESENCE_PEAK_HZ),
-        "crossover_low_k2": design.butter_sos(4, C.MB_LOW_CROSSOVER_HZ,
-                                              "lowpass", fs=SR),
-        "crossover_high_k2": design.butter_sos(4, C.MB_HIGH_CROSSOVER_HZ,
-                                               "highpass", fs=SR),
-        "k_weighting_dynamic_k3": design.k_weighting_dynamic_sos(SR),
-    }
-    rng = np.random.default_rng(2)
-    x = torch.from_numpy(
-        (0.3 * rng.standard_normal((N_KERNEL, 2))).astype(np.float32)).cuda()
-    worst = 0.0
-    for name, sos in cascades.items():
-        err = (sosfilt_cuda(sos, x)[0]
-               - sosfilt_tileconv(sos, x)[0]).abs().max().item()
-        print(f"kernel compat {name}: |y| err {err:.3e} [{N_KERNEL}, 2]")
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"compat cascade {name}: kernel vs plain "
-                                 f"{err:.3e} > {KERNEL_TOL}")
-        worst = max(worst, err)
-    return worst
-
 
 def phase_wedge() -> dict:
     from ame_tpu_torch.ops.limiter import _wedge_pieces, alimiter_compat
@@ -379,7 +463,7 @@ def phase_wedge() -> dict:
 
     def both(env):
         return lambda: [env(dep, p, r) for p, r in sides.values()]
-    ms = _cuda_ms(both(wedge_env_cuda))
+    ms = _cuda_ms(both(wedge_env_cuda), KERNEL_CALLS)
     plain_ms = _cuda_ms(both(wedge_env_plain))
     P = len(sides["release"][0])
     bound = _bound(2 * 2 * N_KERNEL * 4, 2 * 4 * P * N_KERNEL)
@@ -486,13 +570,16 @@ def phase_gain(m_main: torch.Tensor) -> dict:
 
     # each kernel against its plain version on the main path's inputs at
     # 2^23: the full Jacobi sweep from the relaxed carries, pass 1, pass 2
-    npad = pg._pad_block(n)
-    S = pg._select_S(npad)
-    seg_len = npad // S
-    m_t = torch.nn.functional.pad(m_main, (0, npad - n)).reshape(
-        G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
-    c_fix, _, _ = pg._jacobi_carries(m_t, G, S, z3, ia, ir)
+    m_t, S, c_first, c_fix = _jacobi_inputs(m_main)
+    seg_len = m_t.shape[0]
     c = c_fix.reshape(-1).contiguous()
+    # the carry sweep (no att written) from the first sweep's carries
+    co_k, _ = pg.gain_jacobi_cuda(m_t, c_first, ia, ir, False)
+    co_p, _ = pg.gain_jacobi_plain(m_t, c_first, ia, ir, False)
+    if not torch.equal(co_k, co_p):
+        raise AssertionError(f"gain_jacobi carry sweep vs plain at [{G}, "
+                             f"{n}]: max diff "
+                             f"{(co_k - co_p).abs().max().item()}")
     co_k, att_tk = pg.gain_jacobi_cuda(m_t, c, ia, ir, True)
     co_p, att_tp = pg.gain_jacobi_plain(m_t, c, ia, ir, True)
     if not (torch.equal(co_k, co_p) and torch.equal(att_tk, att_tp)):
@@ -501,7 +588,8 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     # the plain sweep is one continuous walk (each segment starts where the
     # one before it ended), so it is the sequential walk and its states at
     # the 32-sample group boundaries are pass 1's plain answer
-    att_p = att_tp.reshape(seg_len, G, S).permute(1, 2, 0).reshape(G, npad)
+    att_p = att_tp.reshape(seg_len, G, S).permute(1, 2, 0).reshape(
+        G, seg_len * S)
     if not torch.equal(c_fix[:, 1:], att_p[:, seg_len - 1::seg_len][:, :-1]):
         raise AssertionError("the relaxed carries are not the plain walk's")
     starts = pg.gain_p1_cuda(m_main, None, z3, ia, ir)
@@ -512,16 +600,19 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     att_k4 = pg.gain_p2_cuda(m_main, starts, ia, ir)
     if not torch.equal(att_k4, pg.gain_p2_plain(m_main, starts, ia, ir)):
         raise AssertionError(f"gain_p2 vs plain at [{G}, {n}]")
-    print(f"gain main-path inputs [{G}, {n}]: gain_jacobi (full sweep), "
-          f"gain_p1 and gain_p2 == their plain versions bit for bit")
+    print(f"gain main-path inputs [{G}, {n}]: gain_jacobi (carry sweep and "
+          f"full sweep), gain_p1 and gain_p2 == their plain versions bit for "
+          f"bit")
 
     # times at 2^23; the plain versions of K2 and K4 at 2^23, of K3 at 2^17
     ms = {
         "gain_jacobi": _cuda_ms(lambda: pg.gain_jacobi_cuda(m_t, c, ia, ir,
-                                                            True)),
+                                                            True),
+                                KERNEL_CALLS),
         "gain_p1": _cuda_ms(lambda: pg.gain_p1_cuda(m_main, None, z3, ia,
                                                     ir)),
-        "gain_p2": _cuda_ms(lambda: pg.gain_p2_cuda(m_main, starts, ia, ir)),
+        "gain_p2": _cuda_ms(lambda: pg.gain_p2_cuda(m_main, starts, ia, ir),
+                            KERNEL_CALLS),
     }
     m17 = m_main[:, :N_GAIN_PLAIN].contiguous()
     plain_ms = {
@@ -537,7 +628,8 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     for k in ms:
         print(f"{k}: kernel {ms[k]:.4f} ms [{G}, {n}], plain "
               f"{plain_ms[k]:.4f} ms [{G}, {plain_n[k]}] (bound "
-              f"{bounds[k][0]:.4f} ms)")
+              f"{bounds[k][0]:.4f} ms, {bounds[k][0] / ms[k]:.1%})")
+    carry = _jacobi_times(m_t, c_first, c)["carry"]
     print(f"gain engine (converged Jacobi, {sweeps_c} sweeps + full sweep) "
           f"{engine_ms:.4f} ms [{G}, {n}]")
     errs = {"gain_jacobi": max(err_a, err_c), "gain_p1": max(err_b, err_c),
@@ -545,25 +637,72 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "n": n,
             "errs": errs,
             "bounds": bounds, "engine_ms": engine_ms, "sweeps": sweeps_c,
-            "walk_ms": walk_ms}
+            "walk_ms": walk_ms, "carry": carry}
+
+
+def _jacobi_inputs(m_main: torch.Tensor):
+    """K2's inputs on the compat main path: the time-major m_t, S, the
+    first sweep's carries (init, then zeros) and the relaxed carries."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    G, n = m_main.shape
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    npad = pg._pad_block(n)
+    S = pg._select_S(npad)
+    seg_len = npad // S
+    m_t = torch.nn.functional.pad(m_main, (0, npad - n)).reshape(
+        G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
+    z3 = torch.zeros(G, device=m_main.device)
+    c_fix, _, _ = pg._jacobi_carries(m_t, G, S, z3, ia, ir)
+    return m_t, S, torch.zeros(G * S, device=m_main.device), c_fix
+
+
+def _jacobi_times(m_t: torch.Tensor, c_first: torch.Tensor,
+                  c_fix: torch.Tensor) -> dict:
+    """K2's carry sweep (from the first sweep's carries) and full sweep
+    (from the relaxed carries), kernel ms and bound at m_t's shape."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    c_fix = c_fix.reshape(-1).contiguous()
+    seg_len, lanes = m_t.shape
+    flops = 5 * seg_len * lanes
+    out = {}
+    for sweep, full, c in (("carry", False, c_first), ("full", True, c_fix)):
+        def sweep_fn():
+            return pg.gain_jacobi_cuda(m_t, c, ia, ir, full)
+        ms = _cuda_ms(sweep_fn, KERNEL_CALLS)
+        one_ms = _cuda_ms(sweep_fn)
+        bound = _bound((2 if full else 1) * seg_len * lanes * 4, flops)
+        out[sweep] = {"ms": ms, "one_call_ms": one_ms, "bound_ms": bound[0],
+                      "bound_by": bound[1], "bound_share": bound[0] / ms}
+        print(f"gain_jacobi {sweep} sweep: kernel {ms:.4f} ms (one call "
+              f"alone {one_ms:.4f} ms) [{seg_len}, {lanes}] (bound "
+              f"{bound[0]:.4f} ms, {bound[0] / ms:.1%})")
+    return out
+
+
+def _compat_x(tmp: str):
+    """The compat main path's input WAV, its int16 samples, and what
+    master_array hands the graph in compat mode (on the card)."""
+    from ame_tpu_torch.io.wav import read_wav, write_wav
+    from ame_tpu_torch.ops.quantize import int16_roundtrip
+    src = os.path.join(tmp, "compat_in.wav")
+    write_wav(src, _compat_input(N_MAIN), SR)
+    pcm, _ = read_wav(src, prefer_int16=True)
+    x = int16_roundtrip(torch.from_numpy(pcm).cuda().to(torch.float32)
+                        * (1.0 / 32768.0))
+    return src, pcm, x
 
 
 def phase_compat_main(tmp: str) -> dict:
     from ame_tpu_torch.api import master_file
     from ame_tpu_torch.config import MasterSettings
     from ame_tpu_torch.graph.chain import master_graph
-    from ame_tpu_torch.io.wav import read_wav, write_wav
+    from ame_tpu_torch.io.wav import read_wav
     from ame_tpu_torch.ops.loudness import integrated_lufs
-    from ame_tpu_torch.ops.quantize import int16_roundtrip
 
-    src = os.path.join(tmp, "compat_in.wav")
+    src, pcm, x = _compat_x(tmp)
     dst = os.path.join(tmp, "compat_out.wav")
-    write_wav(src, _compat_input(N_MAIN), SR)
     settings = MasterSettings(**COMPAT)
-    pcm, _ = read_wav(src, prefer_int16=True)
-    # what master_array hands the graph in compat mode
-    x = int16_roundtrip(torch.from_numpy(pcm).cuda().to(torch.float32)
-                        * (1.0 / 32768.0))
     m_main = _band_max_att(x)
     band_peaks = m_main.amax(dim=1).tolist()
     if not all(v > 0.0 for v in band_peaks):
@@ -601,6 +740,8 @@ def phase_compat_main(tmp: str) -> dict:
                              f"target {COMPAT_TARGET:.4f}")
 
     chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
+    busy = _chain_busy("compat", lambda: master_graph(x, SR, settings),
+                       chain_ms)
     file_s = _host_s(lambda: master_file(src, dst, settings, device="cuda"))
     stages: dict = {}
     master_graph(x, SR, settings, timer=stages)
@@ -612,7 +753,8 @@ def phase_compat_main(tmp: str) -> dict:
     print("compat stages (ms): " + ", ".join(f"{k} {v * 1e3:.3f}"
                                              for k, v in stages.items()))
     return {"counts": counts, "m_main": m_main, "pcm": pcm,
-            "chain_ms": chain_ms, "file_s": file_s, "out_i": out_i,
+            "chain_ms": chain_ms, "busy": busy, "file_s": file_s,
+            "out_i": out_i,
             "peak": peak, "stages": stages}
 
 
@@ -668,20 +810,56 @@ def phase_compat_parity(pcm: np.ndarray) -> dict:
     return {"rel_l2": rel, "max_abs_diff": mx}
 
 
+def kernel_times(root: str) -> int:
+    """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
+    (checked against plain, timed, split by launch), K2's carry and full
+    sweeps on the compat main path's bands, and both device chains
+    (master_graph, with the device's busy time), with the ame_tpu_torch
+    package found under ROOT (default: this checkout), e.g. an unpacked
+    parent commit, so that two trees can be timed in turns on one card.
+    Prints one {"kernel_times": ...} line; no file is mastered."""
+    sys.path.insert(0, os.path.abspath(root))
+    import ame_tpu_torch
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    phase_device()
+    phase_build()
+    cascades = phase_cascades()
+    with tempfile.TemporaryDirectory() as tmp:
+        x_compat = _compat_x(tmp)[2]
+    m_t, _, c_first, c_fix = _jacobi_inputs(_band_max_att(x_compat))
+    sweeps = _jacobi_times(m_t, c_first, c_fix)
+    rng = np.random.default_rng(0)
+    x_quality = torch.from_numpy(np.trunc(np.clip(
+        0.1 * rng.standard_normal((N_MAIN, 2)), -1, 1) * 32767.0).astype(
+            np.float32) / 32768.0).cuda()
+    chains = {}
+    for name, x, s in (("quality", x_quality, FLAGSHIP),
+                       ("compat", x_compat, COMPAT)):
+        settings = MasterSettings(**s)
+        chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
+        busy = _chain_busy(name, lambda: master_graph(x, SR, settings),
+                           chain_ms)
+        chains[name] = {"device_chain_ms": chain_ms, **busy}
+    print(json.dumps({"kernel_times": {
+        "package": os.path.dirname(ame_tpu_torch.__file__),
+        "cascade_scan": cascades, "gain_jacobi": sweeps,
+        "chains": chains}}))
+    return 0
+
+
 def main() -> int:
     kind = phase_device()
     phase_build()
-    kern = phase_kernel()
+    rows = phase_cascades()
     with tempfile.TemporaryDirectory() as tmp:
         main_run = phase_main(tmp)
         phase_parity()
-        compat_cascade_err = phase_compat_kernel()
         wedge = phase_wedge()
         compat = phase_compat_main(tmp)
         gain = phase_gain(compat.pop("m_main"))
         fallback = phase_compat_fallback(tmp)
     phase_compat_parity(compat.pop("pcm"))
-    rows = kern["rows"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"]}
 
@@ -692,17 +870,21 @@ def main() -> int:
                 "launches_by_path": {p: c[name] for p, c in paths.items()},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": None, **extra}
+                "bound_share": bound[0] / ms, "library_ms": None, **extra}
 
     csrc = "ame_tpu_torch/csrc/"
     pg_src = "ame_tpu/ops/pydub_gain.py"
+    quality = rows[:len(_quality_cascades())]
     kernels = [
         entry("cascade_scan", csrc + "cascade_scan.cu",
               "ame_tpu/ops/pallas_scan.py:65", "quality",
-              max([max(r["max_abs_err_y"], r["max_abs_err_zf"])
-                   for r in rows] + [compat_cascade_err]),
-              sum(r["ms"] for r in rows), sum(r["plain_ms"] for r in rows),
-              kern["bound"], per_cascade=rows),
+              max(max(r["max_abs_err_y"], r["max_abs_err_zf"])
+                  for r in rows),
+              sum(r["ms"] for r in quality),
+              sum(r["plain_ms"] for r in quality),
+              (sum(r["bound_ms"] for r in quality), "bytes"),
+              note="ms, plain_ms and bound_ms: the quality path's three "
+                   "cascades together", per_cascade=rows),
         entry("wedge_env", csrc + "wedge_env.cu",
               "ame_tpu/ops/limiter.py:114", "compat", wedge["max_abs_err"],
               wedge["ms"], wedge["plain_ms"], wedge["bound"],
@@ -711,11 +893,18 @@ def main() -> int:
     for name, line in (("gain_jacobi", 307), ("gain_p1", 140),
                        ("gain_p2", 231)):
         path = "compat" if name == "gain_jacobi" else "compat_fallback"
+        extra = {"carry_sweep": gain["carry"]} if name == "gain_jacobi" \
+            else {}
         kernels.append(entry(
             name, csrc + "pydub_gain.cu", f"{pg_src}:{line}", path,
             gain["errs"][name],
             gain["ms"][name], gain["plain_ms"][name], gain["bounds"][name],
-            n=gain["n"], plain_n=gain["plain_n"][name]))
+            n=gain["n"], plain_n=gain["plain_n"][name], **extra))
+    print(json.dumps({"chains": {
+        p: {"device_chain_ms": r["chain_ms"], "file_ms": r["file_s"] * 1e3,
+            "busy_ms": r["busy"]["busy_ms"],
+            "idle_share": r["busy"]["idle_share"]}
+        for p, r in (("quality", main_run), ("compat", compat))}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -724,4 +913,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kernel-times"]:
+        sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else
+                              os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main())

@@ -167,14 +167,14 @@ def test_zi_handoff_across_split(first, second):
 @pytest.mark.parametrize("name", sorted(ALL_CASCADES))
 def test_kernel_sections_keep_poles_inside_unit_circle(name):
     """Every pole of the f32 section rows the kernel walks lies inside the
-    unit circle, so the per-sample recurrence and A^tb stay bounded at any
+    unit circle, so the per-sample recurrence and its powers stay bounded at any
     length. (The companion form of the dynamic K-weighting's real pair
     rounds one pole to 1.00005 in f32: the reason for the triangular
     form.)"""
     sos = ALL_CASCADES[name]()
     k = sos.shape[0]
     sec = cascade_scan._kernel_params(np.ascontiguousarray(sos).tobytes(),
-                                      k, 256)[:7 * k].reshape(k, 7)
+                                      k)[:7 * k].reshape(k, 7)
     for b0, bb1, bb2, a11, a12, a21, a22 in sec.astype(np.float64):
         block = np.array([[a11, a12], [a21, a22]])
         assert np.abs(np.linalg.eigvals(block)).max() < 1.0
@@ -184,57 +184,155 @@ def test_kernel_sections_keep_poles_inside_unit_circle(name):
     np.testing.assert_allclose(np.sort(got), np.sort(want), atol=1e-6)
 
 
-@pytest.mark.parametrize("name", sorted(ALL_CASCADES))
-def test_kernel_parameter_block_three_phase(name):
-    """The host side of the CUDA kernel: a float64 numpy walk of the
-    kernel's three phases (block end states, carry c_{b+1} = A^tb c_b + e_b,
-    block re-run), reading the exact float32 parameter block the kernel
-    receives, matches scipy within 1e-5 — so the block's layout, the
-    section forms, A^tb and the zi/zf transforms are right before the card
-    runs them."""
-    sos = ALL_CASCADES[name]()
-    k, D, tb = sos.shape[0], 2 * sos.shape[0], 256
-    P = cascade_scan._kernel_params(np.ascontiguousarray(sos).tobytes(), k,
-                                    tb).astype(np.float64)
-    sec = P[:7 * k].reshape(k, 7)
-    AT = P[7 * k:7 * k + D * D].reshape(D, D)
-    Vi = P[7 * k + D * D:7 * k + D * D + 4 * k].reshape(k, 2, 2)
-    Vf = P[7 * k + D * D + 4 * k:].reshape(k, 2, 2)
-    x = _noise(N_RAGGED, seed=4).astype(np.float64)
-    zi = _natural_zi(sos)
+def _emulate_kernel(sos, x, zi, logP, R, lanes):
+    """float32 numpy emulation of cascade_scan.cu's decomposition, reading
+    the exact float32 parameter block and power table the kernel receives:
+    sub-blocks of _SUB samples walked from zero state, a Hillis-Steele scan
+    over the 2^logP sub-blocks of a tile with A^(SUB*2^l), the carry across
+    tiles in chunks of `lanes` x R tiles (each lane folds its R tiles with
+    A^T, a scan over the lanes with A^(T*R*2^m) seeded with the chunk's
+    carry-in, the lanes' tiles walked again), and every sub-block re-run
+    from S_{j-1} + A^(SUB*j) c_b (the bits of j). Returns (y, zf)."""
+    f32 = np.float32
+    k, D, L = sos.shape[0], 2 * sos.shape[0], cascade_scan._SUB
+    P = 1 << logP
+    T = P * L
+    key = np.ascontiguousarray(sos).tobytes()
+    prm = cascade_scan._kernel_params(key, k)
+    sec = prm[:7 * k].reshape(k, 7)
+    Vi = prm[7 * k:11 * k].reshape(k, 2, 2)
+    Vf = prm[11 * k:].reshape(k, 2, 2)
+    pw = cascade_scan._power_table(key, k, logP)
+    PL, PT = pw[:logP], pw[logP:]
+    N, C = x.shape
+    nb = -(-N // T)
+    xs = np.zeros((nb * T, C), f32)
+    xs[:N] = x
+    xs = xs.reshape(nb, P, L, C)
 
-    def run_block(s, xb):
-        ys = np.empty_like(xb)
-        for t in range(xb.shape[0]):
-            u = xb[t]
-            for i, (b0, bb1, bb2, a11, a12, a21, a22) in enumerate(sec):
-                s1, s2 = s[2 * i].copy(), s[2 * i + 1].copy()
-                ys_i = b0 * u + s1
-                s[2 * i] = a11 * s1 + a12 * s2 + bb1 * u
-                s[2 * i + 1] = a21 * s1 + a22 * s2 + bb2 * u
-                u = ys_i
-            ys[t] = u
+    def walk(s, steps):                 # s [nb, P, C, D], in place
+        ys = np.empty((nb, P, steps, C), f32)
+        for i in range(steps):
+            u = xs[:, :, i, :]
+            for q, (b0, bb1, bb2, a11, a12, a21, a22) in enumerate(sec):
+                s1, s2 = s[..., 2 * q].copy(), s[..., 2 * q + 1].copy()
+                yq = b0 * u + s1
+                s[..., 2 * q] = a11 * s1 + a12 * s2 + bb1 * u
+                s[..., 2 * q + 1] = a21 * s1 + a22 * s2 + bb2 * u
+                u = yq
+            ys[:, :, i, :] = u
         return ys
 
-    blocks = [x[b:b + tb] for b in range(0, x.shape[0], tb)]
-    ends = []
-    for xb in blocks[:-1]:                       # phase 1
-        s = np.zeros((D, 2))
-        run_block(s, xb)
-        ends.append(s)
-    c = np.einsum("kab,kcb->kac", Vi, zi).reshape(D, 2)
-    carries = [c]
-    for e in ends:                               # phase 2
-        c = AT @ c + e
-        carries.append(c)
-    ys = []
-    for c, xb in zip(carries, blocks):           # phase 3
-        s = c.copy()
-        ys.append(run_block(s, xb))
-    zf = np.einsum("kab,kbc->kca", Vf, s.reshape(k, 2, 2))
-    want, want_zf = _scipy(sos, x, zi)
-    assert np.abs(np.concatenate(ys) - want).max() <= 1e-5
-    assert np.abs(zf - want_zf).max() <= 1e-5
+    def apply(M, v):                    # M [D, D] on v [..., D]
+        return np.einsum("ed,...d->...e", M, v).astype(f32)
+
+    S = np.zeros((nb, P, C, D), f32)    # 1. ends, then the in-tile scan
+    walk(S, L)
+    for l in range(logP):
+        off = 1 << l
+        S[:, off:] = S[:, off:] + apply(PL[l], S[:, :-off])
+    # 2. carries across tiles, c_{b+1} = A^T c_b + E_b, as cascade_carries
+    # walks them: `lanes` lanes of R tiles a chunk
+    z = np.zeros((k, C, 2), f32) if zi is None else zi
+    cb = np.einsum("kab,kcb->cka", Vi, z).reshape(C, D).astype(f32)
+    AT, logR = PT[0], R.bit_length() - 1
+    cst = np.empty((nb, C, D), f32)
+    for base in range(0, nb, lanes * R):
+        Eb = np.zeros((lanes * R, C, D), f32)
+        Eb[:min(lanes * R, nb - base)] = S[base:base + lanes * R, P - 1]
+        Eb = Eb.reshape(lanes, R, C, D)
+        a = np.zeros((lanes, C, D), f32)
+        for i in range(R):
+            a = apply(AT, a) + Eb[:, i]
+        a[0] = a[0] + apply(PT[logR], cb)
+        for m in range(lanes.bit_length() - 1):
+            off = 1 << m
+            a[off:] = a[off:] + apply(PT[logR + m], a[:-off])
+        o = np.concatenate([cb[None], a[:-1]])
+        for i in range(R):
+            b = base + np.arange(lanes) * R + i
+            cst[b[b < nb]] = o[b < nb]
+            o = apply(AT, o) + Eb[:, i]
+        cb = a[-1]
+    start = np.repeat(cst[:, None], P, axis=1)   # 3. start states, outputs
+    for l in range(logP):
+        take = ((np.arange(P) >> l) & 1).astype(bool)
+        start[:, take] = apply(PL[l], start[:, take])
+    start[:, 1:] = start[:, 1:] + S[:, :-1]
+    s = start.copy()
+    y = walk(s, L).reshape(nb * T, C)[:N]
+    # the sub-block that holds sample N-1 stops its walk there
+    b, j = divmod((N - 1) // L, P)
+    s_last = start[b, j].copy()
+    for t in range(b * T + j * L, N):
+        u = x[t]
+        for q, (b0, bb1, bb2, a11, a12, a21, a22) in enumerate(sec):
+            s1, s2 = s_last[:, 2 * q].copy(), s_last[:, 2 * q + 1].copy()
+            yq = b0 * u + s1
+            s_last[:, 2 * q] = a11 * s1 + a12 * s2 + bb1 * u
+            s_last[:, 2 * q + 1] = a21 * s1 + a22 * s2 + bb2 * u
+            u = yq
+    zf = np.einsum("kab,ckb->kca", Vf, s_last.reshape(C, k, 2))
+    return y, zf
+
+
+@pytest.mark.parametrize("with_zi", [True, False], ids=["zi", "zero_zi"])
+@pytest.mark.parametrize("logP,R,lanes", [(2, 2, 4), (7, 32, 32)],
+                         ids=["small_tiles", "stereo_tiles"])
+@pytest.mark.parametrize("name", sorted(ALL_CASCADES))
+def test_kernel_parameter_block_three_phase(name, logP, R, lanes, with_zi):
+    """The CUDA kernel's decomposition, emulated in float32 numpy on the
+    exact parameter block and power table it receives, matches float64
+    scipy and the port's plain tile-conv within 2e-5 (y and zf) at a
+    ragged length, with and without zi: 4-sub-block tiles, carried by 4
+    lanes of 2 tiles (14 tiles in two chunks, so the in-tile scan, the
+    lane scan and the chunk carry-in all run), and the geometry the card
+    uses for stereo (``_geometry(2)``: 128 sub-blocks a tile; 32 lanes of
+    32 tiles, k <= 4)."""
+    sos = ALL_CASCADES[name]()
+    x = _noise(N_RAGGED, seed=4)
+    zi = _natural_zi(sos) if with_zi else None
+    y, zf = _emulate_kernel(sos, x, zi, logP, R, lanes)
+    want, want_zf = _scipy(sos, x, np.zeros((sos.shape[0], 2, 2))
+                           if zi is None else zi)
+    assert np.abs(y - want).max() <= 2e-5
+    assert np.abs(zf - want_zf).max() <= 2e-5
+    y_p, zf_p = tile_conv.sosfilt_tileconv(
+        sos, torch.from_numpy(x), None if zi is None else torch.from_numpy(zi))
+    assert np.abs(y - y_p.numpy()).max() <= 2e-5
+    assert np.abs(zf - zf_p.numpy()).max() <= 2e-5
+
+
+def test_kernel_geometry():
+    """Tiles fit the kernel's limits: CB <= 4 channels, P = 2^logP >= SUB
+    sub-blocks each, at most 256 threads; stereo takes 128 sub-blocks."""
+    assert cascade_scan._geometry(2) == (2, 7)
+    for C in range(1, 12):
+        CB, logP = cascade_scan._geometry(C)
+        assert 1 <= CB <= min(C, 4)
+        assert cascade_scan._SUB <= (1 << logP)
+        assert (1 << logP) * CB <= cascade_scan._MAX_THREADS
+
+
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("name", sorted(ALL_CASCADES))
+def test_kernel_powers_spectral_radius(name, C):
+    """Every f32 power in the kernel's table (A^(SUB*2^l), A^(T*2^l)) has
+    spectral radius <= 1, so no scan level can grow a mode, and equals the
+    float64 power of the f32 section rows within 1e-6 relative to its
+    norm."""
+    sos = ALL_CASCADES[name]()
+    k = sos.shape[0]
+    key = np.ascontiguousarray(sos).tobytes()
+    logP = cascade_scan._geometry(C)[1]
+    table = cascade_scan._power_table(key, k, logP).astype(np.float64)
+    sec = cascade_scan._kernel_params(key, k)[:7 * k].reshape(k, 7)
+    A = scan_iir._compose_sections(sec.astype(np.float64))[0]
+    M = np.linalg.matrix_power(A, cascade_scan._SUB)
+    for P in table:
+        assert np.abs(np.linalg.eigvals(P)).max() <= 1.0
+        assert np.abs(P - M).max() <= 1e-6 * max(np.abs(M).max(), 1e-30)
+        M = M @ M
 
 
 def test_sosfilt_cuda_raises_on_cpu_tensor():

@@ -189,6 +189,41 @@ def test_gain_engine_all_silent_early_out(monkeypatch):
     assert not any(np.asarray(w).any() for w in want)
 
 
+@pytest.mark.parametrize("ia,ir", [(None, None), (0.5, 0.25)],
+                         ids=["compressor", "fast"])
+def test_zero_padding_leaves_the_state_unchanged(ia, ir):
+    """gain_jacobi zero-fills the rows past seg_len and the lanes past the
+    last (its stages are whole): a step with m == 0 must leave every state
+    the recurrence can hold unchanged, bit for bit, so the sweep's
+    carry-outs equal a walk that stops at seg_len. Checked on the states
+    of a real walk, zero and the extremes included."""
+    if ia is None:
+        ia, ir = pg._scal(ATTACK, RELEASE)
+    m = torch.from_numpy(_bursts(20000, G=3).T.copy())
+    states = torch.cat([pg._gain_scan(m, ia, ir).reshape(-1),
+                        torch.tensor([0.0, 1e-30, 1.0, 120.0])])
+    zero = torch.zeros_like(states)
+    stepped = pg._update(states, zero, zero * ia, zero * ir)
+    assert torch.equal(stepped, states)
+    # and the plain sweep over zero-padded rows: the same carry-outs
+    m_t = m[:4096].contiguous()
+    carry = torch.linspace(0.0, 9.0, m_t.shape[1])
+    padded = torch.cat([m_t, torch.zeros(60, m_t.shape[1])])
+    co, _ = pg.gain_jacobi_plain(m_t, carry, ia, ir, False)
+    co_pad, _ = pg.gain_jacobi_plain(padded, carry, ia, ir, False)
+    assert torch.equal(co, co_pad)
+
+
+def test_gain_jacobi_cuda_raises_on_cpu_tensor():
+    """K2's wrapper never runs the plain version: a CPU tensor is an error,
+    and no launch is counted."""
+    before = pg.gain_jacobi_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pg.gain_jacobi_cuda(torch.zeros(64, 8), torch.zeros(8), 0.1, 0.01,
+                            True)
+    assert pg.gain_jacobi_cuda.launches == before
+
+
 def test_pydub_gain_cpu_runs_the_walk():
     m = _bursts(4096, G=2)
     ia, ir = pg._scal(ATTACK, RELEASE)
