@@ -26,8 +26,7 @@
 //     rule stay on the host (ops/pydub_gain.py), one synchronisation per
 //     sweep.
 //
-// What bounds them on an H100:
-//   gain_p1 is latency-bound by design (G threads, N dependent steps).
+// What bounds them on an H100 (gain_p1: below):
 //   gain_p2 and gain_jacobi read m once and write their output once; the
 //   walk is a chain of about three dependent f32 operations a step (add or
 //   sub, min or max, select), ~25 us for gain_jacobi's 4096 steps, so once
@@ -43,14 +42,34 @@
 //   carry_out only. Rows past seg_len are zero-filled: m == 0 leaves the
 //   state unchanged, so the walk needs no mask.
 //
-// gain_p1's 32 loads of the next group are independent of the state, so
-// they are issued before the current group's chain runs. It zeroes the
-// state at flagged group starts (resets may be null) and writes the state
-// before every 32-sample group: starts [G, ceil(N/32)]; the ragged last
-// group needs no walk, its start state is all pass 2 reads. gain_p2 runs
-// one thread per (chain, 32-sample group) from the pass-1 start state and
-// writes att [G, N]; the TPU transposed [512, 32] tiles on the MXU to put
-// groups on lanes, here a thread is a group and needs no transpose.
+// gain_p1 walks each chain in order, zeroes the state at flagged group
+// starts (resets may be null) and writes the state before every 32-sample
+// group: starts [G, ceil(N/32)]; the ragged last group needs no walk, its
+// start state is all pass 2 reads. The walk is serial by nature: pass 1
+// runs exactly where the Jacobi relaxation has stalled, and the pinned
+// rounding admits no other exact parallel form. So what bounds it on an
+// H100 is the dependent chain of one step (add, min, predicated max: ~17
+// cycles), N steps a chain, not its 0.031 ms of bytes at [3, 2^23];
+// gain_floor below measures that chain alone. The design keeps everything
+// but the chain off the walking thread: one block per chain; warp 1 (the
+// producer) streams the chain's m and reset flags into a ring of
+// P1_STAGES shared-memory stages of P1_STAGE samples with coalesced loads
+// and signals each stage full on an mbarrier; thread 0 of warp 0 (the
+// walker) loads each group's 32 values of m from the ring into registers
+// one group ahead of the chain (two register sets, ping-pong), runs the
+// chain, writes each group's start into the stage and signals the stage
+// empty; the producer stores the starts of a freed stage with coalesced
+// stores before it refills the stage. The walker's loop holds no global
+// access; its products m*ia, m*ir (the same __fmul_rn as the other
+// kernels) are off the chain. Samples past n are zero-filled and never
+// walked. (Products formed by the producer and kept in the ring cost the
+// walker 96 registers of prefetch instead of 32, and the compiler then
+// delays the next group's loads until the chain needs them: slower.)
+//
+// gain_p2 runs one thread per (chain, 32-sample group) from the pass-1
+// start state and writes att [G, N]; the TPU transposed [512, 32] tiles on
+// the MXU to put groups on lanes, here a thread is a group and needs no
+// transpose.
 
 #include <cuda_runtime.h>
 
@@ -63,40 +82,186 @@ __device__ __forceinline__ float gain_update(float att, float m, float ia,
   return att <= m ? up : dn;
 }
 
-__global__ void gain_p1(const float* __restrict__ m,
-                        const float* __restrict__ resets,
-                        const float* __restrict__ init,
-                        float* __restrict__ starts, long long n, int G,
-                        float ia, float ir) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const float* mg = m + (long long)g * n;
-  const long long ng = (n + GROUP - 1) / GROUP;
-  float* sg = starts + (long long)g * ng;
-  const long long nfull = n / GROUP;  // groups of a full 32 samples
-  float att = init[g];
-  float v[GROUP];
-  if (nfull > 0) {
-#pragma unroll
-    for (int j = 0; j < GROUP; ++j) v[j] = mg[j];
+#define P1_STAGE 1024                  // samples per ring stage
+#define P1_STAGES 16                   // stages in the ring
+#define P1_GPS (P1_STAGE / GROUP)      // groups per stage (one per lane)
+#define P1_THREADS 64                  // warp 0 walks, warp 1 produces
+
+struct P1Ring {
+  float m[P1_STAGES][P1_STAGE];
+  float reset[P1_STAGES][P1_GPS];
+  float start[P1_STAGES][P1_GPS];
+  unsigned long long full[P1_STAGES];   // mbarriers: producer -> walker
+  unsigned long long empty[P1_STAGES];  // walker -> producer
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
-  for (long long k = 0; k < nfull; ++k) {
-    // the next group's loads go out before this group's chain runs
-    float w[GROUP];
-    const long long t1 = (k + 1 < nfull) ? (k + 1) * GROUP : k * GROUP;
+}
+
+// group q's 32 values of m out of its stage, 16 bytes a load, and its
+// reset flag
+__device__ __forceinline__ float p1_fetch(const P1Ring& R, int q, float* v) {
+  const int s = (q / P1_GPS) % P1_STAGES, o = q % P1_GPS;
 #pragma unroll
-    for (int j = 0; j < GROUP; ++j) w[j] = mg[t1 + j];
-    if (resets != nullptr && resets[k] != 0.f) att = 0.f;
-    sg[k] = att;
+  for (int j = 0; j < GROUP; j += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(&R.m[s][o * GROUP + j]);
+    v[j] = x.x, v[j + 1] = x.y, v[j + 2] = x.z, v[j + 3] = x.w;
+  }
+  return R.reset[s][o];
+}
+
+// The walker (thread 0). It waits for stage k + 1 before it walks stage k,
+// so every group's body (the next group's m and flag out of the ring, its
+// reset, its start, its 32 steps) is one block without a branch, which
+// the compiler interleaves: the loads and the products m*ia, m*ir issue
+// between the steps of the chain.
+template <bool RESETS>
+__device__ __forceinline__ void p1_walk(P1Ring& R, float att, int ng,
+                                        int nfull, int nst, float ia,
+                                        float ir) {
+  float v0[GROUP], v1[GROUP];
+  float f0 = 0.f, f1 = 0.f;
+  mbar_wait(&R.full[0], 0);
+  if (nfull > 0) f0 = p1_fetch(R, 0, v0);
+  // group q from (v, f); the next group's into (vn, fn) (after the last
+  // group, its own again: unused)
+  auto group = [&](int q, const float* v, float f, float* vn, float& fn) {
+    fn = p1_fetch(R, q + 1 < nfull ? q + 1 : q, vn);
+    const int s = (q / P1_GPS) % P1_STAGES, o = q % P1_GPS;
+    if (RESETS && f != 0.f) att = 0.f;
+    R.start[s][o] = att;
 #pragma unroll
     for (int j = 0; j < GROUP; ++j) att = gain_update(att, v[j], ia, ir);
+  };
+  for (int k = 0; k < nst; ++k) {
+    if (k + 1 < nst)
+      mbar_wait(&R.full[(k + 1) % P1_STAGES], ((k + 1) / P1_STAGES) & 1);
+    const int q1 = min((k + 1) * P1_GPS, nfull);
+    for (int q = k * P1_GPS; q < q1; q += 2) {
+      group(q, v0, f0, v1, f1);
+      if (q + 1 < q1) group(q + 1, v1, f1, v0, f0);
+    }
+    if (nfull < ng && nfull / P1_GPS == k) {   // the ragged last group
+      const int s = k % P1_STAGES, o = nfull % P1_GPS;
+      if (RESETS && R.reset[s][o] != 0.f) att = 0.f;
+      R.start[s][o] = att;
+    }
+    mbar_arrive(&R.empty[k % P1_STAGES]);
+  }
+}
+
+__global__ void __launch_bounds__(P1_THREADS)
+    gain_p1(const float* __restrict__ m, const float* __restrict__ resets,
+            const float* __restrict__ init, float* __restrict__ starts,
+            long long n, int G, float ia, float ir) {
+  extern __shared__ __align__(16) unsigned char p1_smem[];
+  P1Ring& R = *reinterpret_cast<P1Ring*>(p1_smem);
+  const int g = blockIdx.x;
+  const float* mg = m + (long long)g * n;
+  const long long ng = (n + GROUP - 1) / GROUP;
+  const long long nfull = n / GROUP;  // groups of a full 32 samples
+  const long long nst = (ng + P1_GPS - 1) / P1_GPS;
+  float* sg = starts + (long long)g * ng;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P1_STAGES; ++s) {
+      mbar_init(&R.full[s], 32);   // every producer lane arrives
+      mbar_init(&R.empty[s], 1);   // the walker arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32) {
+    // ---- producer: warp 1, a stage of P1_STAGE samples per round --------
+    const int lane = threadIdx.x - 32;
+    for (long long k = 0; k < nst; ++k) {
+      const int s = (int)(k % P1_STAGES);
+      const unsigned ph = (unsigned)((k / P1_STAGES) & 1);
+      mbar_wait(&R.empty[s], ph ^ 1);        // the first round passes
+      if (k >= P1_STAGES) {                  // the freed stage's starts
+        const long long q = (k - P1_STAGES) * P1_GPS + lane;
+        if (q < ng) sg[q] = R.start[s][lane];
+      }
+      const long long t0 = k * P1_STAGE;
+      float v[P1_STAGE / 32];
 #pragma unroll
-    for (int j = 0; j < GROUP; ++j) v[j] = w[j];
+      for (int i = 0; i < P1_STAGE / 32; ++i) {
+        const long long t = t0 + lane + 32 * i;
+        v[i] = t < n ? mg[t] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < P1_STAGE / 32; ++i) R.m[s][lane + 32 * i] = v[i];
+      const long long q = k * P1_GPS + lane;
+      R.reset[s][lane] = (resets != nullptr && q < ng) ? resets[q] : 0.f;
+      mbar_arrive(&R.full[s]);
+    }
+    // the starts of the stages still in the ring, once the walker is done
+    for (long long k = nst > P1_STAGES ? nst - P1_STAGES : 0; k < nst; ++k) {
+      const int s = (int)(k % P1_STAGES);
+      mbar_wait(&R.empty[s], (unsigned)((k / P1_STAGES) & 1));
+      const long long q = k * P1_GPS + lane;
+      if (q < ng) sg[q] = R.start[s][lane];
+    }
+  } else if (threadIdx.x == 0) {
+    if (resets != nullptr)
+      p1_walk<true>(R, init[g], (int)ng, (int)nfull, (int)nst, ia, ir);
+    else
+      p1_walk<false>(R, init[g], (int)ng, (int)nfull, (int)nst, ia, ir);
   }
-  if (nfull < ng) {  // the ragged last group
-    if (resets != nullptr && resets[nfull] != 0.f) att = 0.f;
-    sg[nfull] = att;
+}
+
+// The floor under gain_p1: the same step, N steps a chain, over 32 values
+// of m from the middle of the chain held in registers (their products are
+// formed once, outside the loop), no memory traffic in the loop. One
+// thread per chain; out [G] keeps the final states so the walk is not
+// optimised away.
+__global__ void gain_floor(const float* __restrict__ m, float* __restrict__ out,
+                           long long n, float ia, float ir) {
+  if (threadIdx.x != 0) return;
+  const int g = blockIdx.x;
+  const long long t0 = n / 2 / GROUP * GROUP;
+  float v[GROUP];
+#pragma unroll
+  for (int j = 0; j < GROUP; ++j)
+    v[j] = t0 + j < n ? m[(long long)g * n + t0 + j] : 0.f;
+  float att = 0.f;
+  for (long long k = 0; k < n / GROUP; ++k) {
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) att = gain_update(att, v[j], ia, ir);
   }
+  out[g] = att;
 }
 
 __global__ void gain_p2(const float* __restrict__ m,
@@ -216,14 +381,34 @@ __global__ void __launch_bounds__(JAC_LANES)
 }
 
 // m [G, n] chain-major; resets [ceil(n/32)] or null; init [G];
-// starts [G, ceil(n/32)].
+// starts [G, ceil(n/32)]. stage, stages: the ring geometry the caller
+// assumes (ops/pydub_gain.py::_p1_ring), checked against this build's.
 extern "C" int gain_p1_f32(const float* m, const float* resets,
                            const float* init, float* starts, long long n,
-                           int G, float ia, float ir, void* stream) {
-  if (n < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 32;
-  gain_p1<<<(G + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+                           int G, int stage, int stages, float ia, float ir,
+                           void* stream) {
+  if (n < 1 || n > (1LL << 35) || G < 1 || stage != P1_STAGE ||
+      stages != P1_STAGES)
+    return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;        // dynamic shared memory allowed
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gain_p1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sizeof(P1Ring));
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  gain_p1<<<G, P1_THREADS, sizeof(P1Ring), (cudaStream_t)stream>>>(
       m, resets, init, starts, n, G, ia, ir);
+  return (int)cudaGetLastError();
+}
+
+// m [G, n]; out [G]: the state after n - n % 32 steps over 32 samples of
+// the chain repeated (the timing floor of gain_p1, not a result).
+extern "C" int gain_floor_f32(const float* m, float* out, long long n, int G,
+                              float ia, float ir, void* stream) {
+  if (n < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  gain_floor<<<G, 32, 0, (cudaStream_t)stream>>>(m, out, n, ia, ir);
   return (int)cudaGetLastError();
 }
 

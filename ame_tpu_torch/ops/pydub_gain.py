@@ -90,15 +90,28 @@ def _gain_scan(m: torch.Tensor, inv_a: float, inv_r: float,
 # Kernels (CUDA) and their plain versions
 # ---------------------------------------------------------------------------
 
+_P1_STAGE = 1024     # samples per ring stage of gain_p1 (P1_STAGE)
+_P1_STAGES = 16      # stages in its ring (P1_STAGES)
+
+
+def _p1_ring():
+    """(stage, stages): gain_p1's ring of ``stages`` stages of ``stage``
+    samples of m, one 32-sample group per producer lane; the kernel checks
+    them against its build."""
+    return _P1_STAGE, _P1_STAGES
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build("pydub_gain")["path"]))
     f, p, ll, i = ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong, \
         ctypes.c_int
-    lib.gain_p1_f32.argtypes = [p, p, p, p, ll, i, f, f, p]
+    lib.gain_p1_f32.argtypes = [p, p, p, p, ll, i, i, i, f, f, p]
     lib.gain_p2_f32.argtypes = [p, p, p, ll, i, f, f, p]
     lib.gain_jacobi_f32.argtypes = [p, p, p, p, ll, i, f, f, p]
-    for fn in (lib.gain_p1_f32, lib.gain_p2_f32, lib.gain_jacobi_f32):
+    lib.gain_floor_f32.argtypes = [p, p, ll, i, f, f, p]
+    for fn in (lib.gain_p1_f32, lib.gain_p2_f32, lib.gain_jacobi_f32,
+               lib.gain_floor_f32):
         fn.restype = ctypes.c_int
     lib.pydub_gain_error.argtypes = [ctypes.c_int]
     lib.pydub_gain_error.restype = ctypes.c_char_p
@@ -139,10 +152,12 @@ def gain_p1_cuda(m: torch.Tensor, resets: torch.Tensor | None,
         if resets.shape[0] != ng:
             raise ValueError(f"resets must be [{ng}]")
     starts = torch.empty((G, ng), dtype=m.dtype, device=m.device)
+    stage, stages = _p1_ring()
     with torch.cuda.device(m.device):
         _launch("gain_p1_f32", _lib().gain_p1_f32, m.data_ptr(),
                 None if resets is None else resets.data_ptr(),
-                init.data_ptr(), starts.data_ptr(), n, G, inv_a, inv_r)
+                init.data_ptr(), starts.data_ptr(), n, G, stage, stages,
+                inv_a, inv_r)
     gain_p1_cuda.launches += 1
     return starts
 

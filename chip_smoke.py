@@ -9,7 +9,9 @@ failure raises and the script exits non-zero without the final line:
 
   1. device: the card's name and nvidia-smi's name / power limit line;
   2. build: compiles ame_tpu_torch/csrc/{cascade_scan,wedge_env,pydub_gain}.cu
-     from the checkout, one nvcc each, all started together;
+     from the checkout, one nvcc each, all started together; prints each
+     kernel's registers and spills, and the opcodes in the hot loop of
+     gain_p1's walker and of its floor kernel (cuobjdump -sass);
   3. K5 kernel vs plain: the ten main-path cascades (quality: analog
      shelves k=2, 4-band EQ k=4, K-weighting k=2; compat: k=1 shelf cores,
      the k=4 presence band, the k=2 crossovers, the k=3 dynamic-mode
@@ -26,33 +28,40 @@ failure raises and the script exits non-zero without the final line:
      (max abs difference <= 2e-4, gain difference <= 0.01 dB);
   6. the wedge envelope (K1) vs its plain 12-scan form on the card, both
      directions, on the compat depths of [2^23 + 1234, 2] noise at 0.5
-     (envelope within 1e-5, limited output within 1/32768);
+     (envelope within 1e-5, limited output within 1/32768); its time and
+     its split over its three launches (torch.profiler);
   7. gain kernels (K2 Jacobi sweep, K3 pass 1, K4 pass 2) vs the plain
      sequential walk on the card, bit for bit: (a) K2 on 2^17 bursts and
      freeze runs,
      (b) K3+K4 on translation-only content, where K2 must report no
-     convergence, (c) K2 against K3+K4 on the compat main path's band
+     convergence, (d) K3 with reset flags at groups 40, 200, 1000 and
+     3000 against its plain version at [3, 2^17], (c) K2 against K3+K4 on
+     the compat main path's band
      max-attenuations at 2^23, and on those inputs each kernel against its
      plain version: K2's full sweep from the relaxed carries, K4, and K3's
      start states against the plain sweep's states at the group bounds;
      K2's carry sweep (no att written) against its plain version too, and
-     its carry and full sweeps timed apart;
+     its carry and full sweeps timed apart; K3's floor (gain_floor: the
+     same step 2^23 times a chain from registers) with the SM clock
+     sampled while it runs;
   8. compat main path: master_file (mode="compat", multiband) on a 2^23
      gated noise + 100 Hz WAV that takes every band over its threshold;
      K1 must launch twice, K5 seven times, K2 at least once and K3 / K4
      never (the relaxation converges); the master's peak (<= 1.0,
      auto-level) and loudness (within 1.0 LU of the auto-levelled -14);
      stage times; then the fallback path: master_file on steady 0.5 noise,
-     whose low band does not converge, so K3 and K4 must launch;
+     whose low band does not converge, so K3 and K4 must launch, and its
+     device chain timed with its busy time;
   9. compat card vs CPU on the first 2^20 samples: relative L2 < 3e-3 or
      max abs <= 2/32768, loudnorm gain_db / output_i within 0.01 dB;
  10. a {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-``python3 chip_smoke.py --kernel-times [ROOT]`` runs phase 3, K2's sweep
-times and the two device chains only, with the ame_tpu_torch package under
-ROOT (default: this checkout; e.g. an unpacked parent commit), so that two
-trees can be timed in turns on one card.
+``python3 chip_smoke.py --kernel-times [ROOT]`` runs phase 3, K1's check
+and times, K2's sweep times, K3's check, time and floor at [3, 2^23] and
+the three device chains (quality, compat, compat fallback) only, with the
+ame_tpu_torch package under ROOT (default: this checkout; e.g. an unpacked
+parent commit), so that two trees can be timed in turns on one card.
 
 Every kernel's launch count is set to 0 just before each main path and read
 just after it. Times are medians of 3 warm runs, taken with
@@ -65,6 +74,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -95,6 +105,7 @@ KERNEL_CALLS = 10              # calls in a row per timed kernel run
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS = 67e12              # H100 SXM, f32 outside the tensor cores
 ATTACK, RELEASE = 220.5, 2205.0   # the compressor's 5 / 50 ms at 44.1 kHz
+RESET_GROUPS = (40, 200, 1000, 3000)   # flagged 32-sample groups, K3 (d)
 
 
 def _cuda_ms(fn, calls: int = 1) -> float:
@@ -174,10 +185,7 @@ def phase_device() -> str:
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
                          "port on an NVIDIA card only")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit").splitlines()[0]
     print(f"device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     print(smi)
@@ -194,6 +202,63 @@ def phase_build() -> None:
         for name, regs, spills in _ptxas_report(info["ptxas"]):
             print(f"  ptxas {name}: {regs} registers, {spills} bytes "
                   f"spilled")
+    for kernel in ("gain_p1", "gain_floor"):
+        for loop in _sass_hot_loops(infos[2]["path"], kernel) or [None]:
+            print(f"  sass {kernel} loop: " + json.dumps(loop))
+
+
+SASS_OPS = ("LDG", "LDS", "STS", "STG", "FFMA", "FMUL", "FADD", "FMNMX",
+            "FSEL", "FSETP")
+
+
+def _sass_hot_loops(so, kernel: str):
+    """The innermost loops of `kernel` that hold FMNMX (a loop is a
+    backward branch in cuobjdump's SASS of the library): each one's address
+    range, instruction count and the count of each opcode in SASS_OPS.
+    None when cuobjdump or the kernel is not found."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", str(so)], capture_output=True,
+                          text=True).stdout
+    body = None
+    for chunk in text.split("Function : ")[1:]:
+        mangled = chunk.split(None, 1)[0]
+        m = re.match(r"_Z(\d+)", mangled)
+        if m and mangled[m.end():m.end() + int(m.group(1))] == kernel:
+            body = chunk
+    if body is None:
+        return None
+    insns, labels, pending = [], {}, []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            insns.append((addr, m.group(2), m.group(3)))
+    loops = []
+    for addr, op, args in insns:
+        t = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", args)
+        if not op.startswith("BRA") or t is None:
+            continue
+        target = labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
+        if target is not None and target <= addr:
+            ops = [o.split(".")[0] for a, o, _ in insns if target <= a <= addr]
+            if "FMNMX" in ops:
+                loops.append((target, addr, ops))
+    return [{"range": f"{t:#x}-{a:#x}", "instructions": len(ops),
+             **{k: ops.count(k) for k in SASS_OPS}}
+            for t, a, ops in loops
+            if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a)
+                       for t2, a2, _ in loops)]
 
 
 def _ptxas_report(text: str) -> list:
@@ -429,28 +494,61 @@ def phase_parity() -> dict:
 # Compat chain: K1 (wedge_env), K2 (gain_jacobi), K3 (gain_p1), K4 (gain_p2)
 # ---------------------------------------------------------------------------
 
-def phase_wedge() -> dict:
-    from ame_tpu_torch.ops.limiter import _wedge_pieces, alimiter_compat
-    from ame_tpu_torch.ops.wedge_env import wedge_env_cuda, wedge_env_plain
-
+def _wedge_input():
+    """[2^23 + 1234, 2] 0.5 N(0,1) noise on the card and its compat depths
+    (alimiter_compat's formula: limit 0.98)."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(
         (0.5 * rng.standard_normal((N_KERNEL, 2))).astype(np.float32)).cuda()
-    # the compat depth formula of alimiter_compat (limit 0.98, 5 / 50 ms)
     peak = x.abs().amax(dim=1)
     dep = torch.clamp(1.0 - 0.98 / torch.clamp(peak, min=1e-9), min=0.0)
+    return x, dep
+
+
+def _wedge_kernel(dep: torch.Tensor) -> dict:
+    """K1 on dep in both directions (the compat limiter's 5 / 50 ms pieces)
+    against its plain version (envelope within WEDGE_TOL), then timed:
+    both directions 10 calls in a row, one call alone, the plain version,
+    and the split over its launches (torch.profiler)."""
+    from ame_tpu_torch.ops.limiter import _wedge_pieces
+    from ame_tpu_torch.ops.wedge_env import wedge_env_cuda, wedge_env_plain
     sides = {"release": (_wedge_pieces(RELEASE), False),
              "attack": (_wedge_pieces(float(round(5.0 * SR / 1000.0))),
                         True)}
-    env_k, env_p, err = {}, {}, 0.0
+    env_p, err = {}, 0.0
     for side, (pieces, reverse) in sides.items():
-        env_k[side] = wedge_env_cuda(dep, pieces, reverse)
+        env_k = wedge_env_cuda(dep, pieces, reverse)
         env_p[side] = wedge_env_plain(dep, pieces, reverse)
-        e = (env_k[side] - env_p[side]).abs().max().item()
-        print(f"wedge_env {side}: |env| err {e:.3e} [{N_KERNEL}]")
+        e = (env_k - env_p[side]).abs().max().item()
+        print(f"wedge_env {side}: |env| err {e:.3e} [{dep.shape[0]}]")
         err = max(err, e)
     if not err <= WEDGE_TOL:
         raise AssertionError(f"wedge_env vs plain {err:.3e} > {WEDGE_TOL}")
+
+    def both(env):
+        return lambda: [env(dep, p, r) for p, r in sides.values()]
+    ms = _cuda_ms(both(wedge_env_cuda), KERNEL_CALLS)
+    one_ms = _cuda_ms(both(wedge_env_cuda))
+    plain_ms = _cuda_ms(both(wedge_env_plain))
+    phases = _profile_ms(both(wedge_env_cuda))
+    P = len(sides["release"][0])
+    n = dep.shape[0]
+    bound = _bound(2 * 2 * n * 4, 2 * 4 * P * n)
+    print(f"wedge_env both directions: kernel {ms:.4f} ms ({bound[0] / ms:.1%}"
+          f" of its bound {bound[0]:.4f} ms; one call alone {one_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms; launches (ms): "
+          + ", ".join(f"{k} {t:.4f}" for k, t in phases.items()))
+    return {"env_p": env_p, "max_abs_err": err, "ms": ms,
+            "one_call_ms": one_ms, "plain_ms": plain_ms, "bound": bound,
+            "phase_ms": phases}
+
+
+def phase_wedge() -> dict:
+    from ame_tpu_torch.ops.limiter import alimiter_compat
+
+    x, dep = _wedge_input()
+    k1 = _wedge_kernel(dep)
+    env_p = k1.pop("env_p")
     # the limited output: the kernel path against the plain envelopes
     y_k = alimiter_compat(x, SR)
     d_p = torch.maximum(env_p["release"], env_p["attack"])
@@ -460,17 +558,7 @@ def phase_wedge() -> dict:
     print(f"alimiter_compat kernel vs plain envelopes: |y| err {err_y:.3e}")
     if not err_y <= LSB:
         raise AssertionError(f"limited output differs by {err_y} > 1/32768")
-
-    def both(env):
-        return lambda: [env(dep, p, r) for p, r in sides.values()]
-    ms = _cuda_ms(both(wedge_env_cuda), KERNEL_CALLS)
-    plain_ms = _cuda_ms(both(wedge_env_plain))
-    P = len(sides["release"][0])
-    bound = _bound(2 * 2 * N_KERNEL * 4, 2 * 4 * P * N_KERNEL)
-    print(f"wedge_env both directions: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (bound {bound[0]:.4f} ms)")
-    return {"max_abs_err": max(err, err_y), "ms": ms, "plain_ms": plain_ms,
-            "bound": bound}
+    return {**k1, "max_abs_err": max(k1["max_abs_err"], err_y)}
 
 
 def _gain_bounds(G: int, n: int):
@@ -557,6 +645,22 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     print(f"gain (b) translation-only: gain_jacobi gave up after {sweeps_t} "
           f"sweeps; gain_p1 + gain_p2 == plain walk bit for bit")
 
+    # (d) K3 with reset flags at a handful of group starts, from a non-zero
+    # state, on the main path's bands cut to 2^17 (4096 groups)
+    m17 = m_main[:, :N_GAIN_PLAIN].contiguous()
+    resets = torch.zeros(-(-N_GAIN_PLAIN // pg._K), device="cuda")
+    resets[list(RESET_GROUPS)] = 1.0
+    init = torch.tensor([0.0, 1.5, 7.0], device="cuda")
+    st_k = pg.gain_p1_cuda(m17, resets, init, ia, ir)
+    st_p = pg.gain_p1_plain(m17, resets, init, ia, ir)
+    if not torch.equal(st_k, st_p):
+        raise AssertionError(f"(d) gain_p1 with resets vs plain: max diff "
+                             f"{(st_k - st_p).abs().max().item()}")
+    if not (st_k[:, list(RESET_GROUPS)] == 0).all().item():
+        raise AssertionError("(d) a flagged group does not start at 0")
+    print(f"gain (d) gain_p1 with resets at groups {list(RESET_GROUPS)} == "
+          f"gain_p1_plain bit for bit [3, {N_GAIN_PLAIN}]")
+
     # (c) the compat main path's bands at 2^23: two algorithms, one answer
     G, n = m_main.shape
     att_c, ok_c, sweeps_c = pg._jacobi(m_main, z3, ia, ir)
@@ -592,11 +696,9 @@ def phase_gain(m_main: torch.Tensor) -> dict:
         G, seg_len * S)
     if not torch.equal(c_fix[:, 1:], att_p[:, seg_len - 1::seg_len][:, :-1]):
         raise AssertionError("the relaxed carries are not the plain walk's")
-    starts = pg.gain_p1_cuda(m_main, None, z3, ia, ir)
-    starts_p = torch.cat([z3[:, None], att_p[:, pg._K - 1:n - 1:pg._K]], 1)
-    if not torch.equal(starts, starts_p):
-        raise AssertionError(f"gain_p1 vs the plain walk at [{G}, {n}]: max "
-                             f"diff {(starts - starts_p).abs().max().item()}")
+    del att_p
+    k3 = _p1_kernel(m_main, _sweep_starts(att_tp, G, S, n))
+    starts = k3.pop("starts")
     att_k4 = pg.gain_p2_cuda(m_main, starts, ia, ir)
     if not torch.equal(att_k4, pg.gain_p2_plain(m_main, starts, ia, ir)):
         raise AssertionError(f"gain_p2 vs plain at [{G}, {n}]")
@@ -609,12 +711,10 @@ def phase_gain(m_main: torch.Tensor) -> dict:
         "gain_jacobi": _cuda_ms(lambda: pg.gain_jacobi_cuda(m_t, c, ia, ir,
                                                             True),
                                 KERNEL_CALLS),
-        "gain_p1": _cuda_ms(lambda: pg.gain_p1_cuda(m_main, None, z3, ia,
-                                                    ir)),
+        "gain_p1": k3["ms"],
         "gain_p2": _cuda_ms(lambda: pg.gain_p2_cuda(m_main, starts, ia, ir),
                             KERNEL_CALLS),
     }
-    m17 = m_main[:, :N_GAIN_PLAIN].contiguous()
     plain_ms = {
         "gain_jacobi": _cuda_ms(lambda: pg.gain_jacobi_plain(m_t, c, ia, ir,
                                                              True)),
@@ -637,7 +737,64 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "n": n,
             "errs": errs,
             "bounds": bounds, "engine_ms": engine_ms, "sweeps": sweeps_c,
-            "walk_ms": walk_ms, "carry": carry}
+            "walk_ms": walk_ms, "carry": carry, "p1": k3}
+
+
+def _sweep_starts(att_t: torch.Tensor, G: int, S: int, n: int):
+    """Pass 1's answer from a full Jacobi sweep from the relaxed carries
+    (the sequential walk, time-major [seg_len, G*S], from zero state): the
+    state before every 32-sample group."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    seg_len = att_t.shape[0]
+    att = att_t.reshape(seg_len, G, S).permute(1, 2, 0).reshape(G, -1)
+    return torch.cat([att.new_zeros(G, 1), att[:, pg._K - 1:n - 1:pg._K]], 1)
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _p1_kernel(m: torch.Tensor, starts_ref: torch.Tensor) -> dict:
+    """K3 on m [G, N] from zero state, bit for bit against starts_ref, then
+    timed (one call between events), with its floor: gain_floor, the same
+    step N times a chain from registers, no memory traffic (when the
+    package's library has it), and the SM clock sampled while the card runs
+    floor walks."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    G, n = m.shape
+    z = torch.zeros(G, device=m.device)
+    starts = pg.gain_p1_cuda(m, None, z, ia, ir)
+    if not torch.equal(starts, starts_ref):
+        raise AssertionError(f"gain_p1 vs the plain walk at [{G}, {n}]: max "
+                             f"diff {(starts - starts_ref).abs().max().item()}")
+    ms = _cuda_ms(lambda: pg.gain_p1_cuda(m, None, z, ia, ir))
+    out = {"starts": starts, "ms": ms, "floor": None}
+    lib = pg._lib()
+    if hasattr(lib, "gain_floor_f32"):
+        final = torch.empty(G, device=m.device)
+
+        def floor():
+            pg._launch("gain_floor_f32", lib.gain_floor_f32, m.data_ptr(),
+                       final.data_ptr(), n, G, ia, ir)
+        floor_ms = _cuda_ms(floor)
+        for _ in range(8):                 # ~0.4 s of floor walks queued
+            floor()
+        clock = _smi("clocks.sm,clocks.max.sm")
+        torch.cuda.synchronize()
+        ns = floor_ms * 1e6 / (n // pg._K * pg._K)
+        mhz = re.match(r"\s*(\d+)", clock)
+        out["floor"] = {"ms": floor_ms, "ns_per_step": ns, "sm_clock": clock,
+                        "cycles_per_step": (ns * int(mhz.group(1)) / 1e3
+                                            if mhz else None),
+                        "p1_multiple": ms / floor_ms}
+        print(f"gain_p1 floor (gain_floor, the same step from registers): "
+              f"{floor_ms:.4f} ms [{G}, {n}] = {ns:.3f} ns a step "
+              f"(SM clock, current / max: {clock}); gain_p1 {ms:.4f} ms = "
+              f"{ms / floor_ms:.3f}x the floor")
+    return out
 
 
 def _jacobi_inputs(m_main: torch.Tensor):
@@ -758,18 +915,33 @@ def phase_compat_main(tmp: str) -> dict:
             "peak": peak, "stages": stages}
 
 
-def phase_compat_fallback(tmp: str) -> dict:
-    """The compat path on steady 0.5 noise: the low band's max-attenuation
-    hovers over its threshold without ever saturating the recurrence, the
-    Jacobi relaxation stalls there, and the engine takes K3 + K4."""
-    from ame_tpu_torch.api import master_file
+def _steady_x(tmp: str):
+    """The fallback path's input WAV (steady 0.5 N(0,1) noise, seed 1) and
+    what master_array hands the graph in compat mode (on the card)."""
     from ame_tpu_torch.io.wav import read_wav, write_wav
-
+    from ame_tpu_torch.ops.quantize import int16_roundtrip
     src = os.path.join(tmp, "steady_in.wav")
-    dst = os.path.join(tmp, "steady_out.wav")
     rng = np.random.default_rng(1)
     write_wav(src, np.clip(0.5 * rng.standard_normal((N_MAIN, 2)), -1, 1),
               SR)
+    pcm, _ = read_wav(src, prefer_int16=True)
+    x = int16_roundtrip(torch.from_numpy(pcm).cuda().to(torch.float32)
+                        * (1.0 / 32768.0))
+    return src, x
+
+
+def phase_compat_fallback(tmp: str) -> dict:
+    """The compat path on steady 0.5 noise: the low band's max-attenuation
+    hovers over its threshold without ever saturating the recurrence, the
+    Jacobi relaxation stalls there, and the engine takes K3 + K4. Then its
+    device chain is timed as the main paths' are."""
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.io.wav import read_wav
+
+    src, x = _steady_x(tmp)
+    dst = os.path.join(tmp, "steady_out.wav")
     _zero_counts()
     master_file(src, dst, COMPAT, device="cuda")
     counts = _read_counts()
@@ -780,7 +952,17 @@ def phase_compat_fallback(tmp: str) -> dict:
     out, sr = read_wav(dst)
     if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
         raise AssertionError(f"bad fallback master: shape {out.shape}")
-    return {"counts": counts}
+    settings = MasterSettings(**COMPAT)
+    chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
+    busy = _chain_busy("compat_fallback",
+                       lambda: master_graph(x, SR, settings), chain_ms)
+    file_s = _host_s(lambda: master_file(src, dst, settings, device="cuda"))
+    duration = N_MAIN / SR
+    print(f"compat fallback device chain {chain_ms:.3f} ms = "
+          f"{duration / (chain_ms / 1e3):.1f}x realtime; file to file "
+          f"{file_s * 1e3:.1f} ms")
+    return {"counts": counts, "chain_ms": chain_ms, "busy": busy,
+            "file_s": file_s}
 
 
 def phase_compat_parity(pcm: np.ndarray) -> dict:
@@ -812,9 +994,12 @@ def phase_compat_parity(pcm: np.ndarray) -> dict:
 
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
-    (checked against plain, timed, split by launch), K2's carry and full
-    sweeps on the compat main path's bands, and both device chains
-    (master_graph, with the device's busy time), with the ame_tpu_torch
+    (checked against plain, timed, split by launch), K1 in both directions
+    (checked, timed, split by launch), K2's carry and full sweeps and K3
+    (checked bit for bit against the full sweep's states, timed, with its
+    floor when the library has one) on the compat main path's bands, and
+    the three device chains (quality, compat, compat fallback:
+    master_graph, with the device's busy time), with the ame_tpu_torch
     package found under ROOT (default: this checkout), e.g. an unpacked
     parent commit, so that two trees can be timed in turns on one card.
     Prints one {"kernel_times": ...} line; no file is mastered."""
@@ -822,20 +1007,32 @@ def kernel_times(root: str) -> int:
     import ame_tpu_torch
     from ame_tpu_torch.config import MasterSettings
     from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.ops import pydub_gain as pg
     phase_device()
     phase_build()
     cascades = phase_cascades()
+    wedge = _wedge_kernel(_wedge_input()[1])
+    del wedge["env_p"]
     with tempfile.TemporaryDirectory() as tmp:
         x_compat = _compat_x(tmp)[2]
-    m_t, _, c_first, c_fix = _jacobi_inputs(_band_max_att(x_compat))
+        x_steady = _steady_x(tmp)[1]
+    m_main = _band_max_att(x_compat)
+    m_t, S, c_first, c_fix = _jacobi_inputs(m_main)
     sweeps = _jacobi_times(m_t, c_first, c_fix)
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    _, att_t = pg.gain_jacobi_cuda(m_t, c_fix.reshape(-1).contiguous(), ia,
+                                   ir, True)
+    G, n = m_main.shape
+    p1 = _p1_kernel(m_main, _sweep_starts(att_t, G, S, n))
+    del p1["starts"], att_t
     rng = np.random.default_rng(0)
     x_quality = torch.from_numpy(np.trunc(np.clip(
         0.1 * rng.standard_normal((N_MAIN, 2)), -1, 1) * 32767.0).astype(
             np.float32) / 32768.0).cuda()
     chains = {}
     for name, x, s in (("quality", x_quality, FLAGSHIP),
-                       ("compat", x_compat, COMPAT)):
+                       ("compat", x_compat, COMPAT),
+                       ("compat_fallback", x_steady, COMPAT)):
         settings = MasterSettings(**s)
         chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
         busy = _chain_busy(name, lambda: master_graph(x, SR, settings),
@@ -843,8 +1040,8 @@ def kernel_times(root: str) -> int:
         chains[name] = {"device_chain_ms": chain_ms, **busy}
     print(json.dumps({"kernel_times": {
         "package": os.path.dirname(ame_tpu_torch.__file__),
-        "cascade_scan": cascades, "gain_jacobi": sweeps,
-        "chains": chains}}))
+        "cascade_scan": cascades, "wedge_env": wedge, "gain_jacobi": sweeps,
+        "gain_p1": p1, "chains": chains}}))
     return 0
 
 
@@ -888,13 +1085,14 @@ def main() -> int:
         entry("wedge_env", csrc + "wedge_env.cu",
               "ame_tpu/ops/limiter.py:114", "compat", wedge["max_abs_err"],
               wedge["ms"], wedge["plain_ms"], wedge["bound"],
-              n=N_KERNEL, note="both directions"),
+              n=N_KERNEL, note="both directions",
+              one_call_ms=wedge["one_call_ms"], phase_ms=wedge["phase_ms"]),
     ]
     for name, line in (("gain_jacobi", 307), ("gain_p1", 140),
                        ("gain_p2", 231)):
         path = "compat" if name == "gain_jacobi" else "compat_fallback"
-        extra = {"carry_sweep": gain["carry"]} if name == "gain_jacobi" \
-            else {}
+        extra = {"gain_jacobi": {"carry_sweep": gain["carry"]},
+                 "gain_p1": {"floor": gain["p1"]["floor"]}}.get(name, {})
         kernels.append(entry(
             name, csrc + "pydub_gain.cu", f"{pg_src}:{line}", path,
             gain["errs"][name],
@@ -904,7 +1102,8 @@ def main() -> int:
         p: {"device_chain_ms": r["chain_ms"], "file_ms": r["file_s"] * 1e3,
             "busy_ms": r["busy"]["busy_ms"],
             "idle_share": r["busy"]["idle_share"]}
-        for p, r in (("quality", main_run), ("compat", compat))}}))
+        for p, r in (("quality", main_run), ("compat", compat),
+                     ("compat_fallback", fallback))}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -246,47 +246,194 @@ def test_wedge_pieces_match_reference():
         assert limiter._wedge_pieces(width) == ref(width)
 
 
-def _wedge_three_phase(dep, pieces, reverse, tb):
-    """numpy emulation of csrc/wedge_env.cu's three phases, in f32, with
-    the wrapper's parameter block: block end values from zero state, the
-    per-piece carry walk with rho^tb, and the block re-run."""
-    from ame_tpu_torch.ops.wedge_env import _kernel_params
-    P, n = len(pieces), dep.shape[0]
-    prm = _kernel_params(tuple(pieces), tb)
-    a, rho, rho_tb = prm[:P], prm[P:2 * P], prm[2 * P:]
-    u = dep[::-1] if reverse else dep
-    nb = -(-n // tb)
-    up = np.concatenate([u, np.zeros(nb * tb - n, np.float32)]).reshape(
-        nb, tb)
-    s = np.zeros((P, nb), np.float32)
-    for i in range(tb):                                     # phase 1
-        s = np.maximum(up[None, :, i], rho[:, None] * s)
-    carry = np.zeros((P, nb), np.float32)
-    for b in range(nb - 1):                                 # phase 2
-        carry[:, b + 1] = np.maximum(s[:, b], rho_tb * carry[:, b])
-    s, env = carry, np.zeros((nb, tb), np.float32)
-    for i in range(tb):                                     # phase 3
-        s = np.maximum(up[None, :, i], rho[:, None] * s)
-        env[:, i] = np.min(a[:, None] * s, axis=0)
-    env = env.reshape(-1)[:n]
-    return env[::-1] if reverse else env
+def _wedge_tiled(dep, pieces, reverse, sub, log_tp, carry_threads):
+    """float32 numpy emulation of csrc/wedge_env.cu's decomposition, on the
+    exact f32 pieces and power table the kernel receives. Tiles of 2^log_tp
+    rows x ``sub`` samples sit at multiples of the tile in memory (zero
+    past n; REVERSE walks the mirrored tiles and rows). (1) Each row is
+    walked from zero state; the row ends are scanned inside the tile: a
+    shuffle scan in each 32-row warp with rho^(sub*2^l), the earlier warps'
+    totals folded with rho^(32*sub) and added with rho^(sub*(lane+1)).
+    (2) The tile totals are scanned in chunks of ``carry_threads``: thread
+    0 folds in the chunk's carry-in with rho^T, a shuffle scan in each warp
+    with rho^(T*2^l), warp 0 scans the warp totals with rho^(32*T*2^l),
+    and each lane adds the earlier warps' prefix with rho^(T*(lane+1)).
+    (3) Each row is re-walked from max(S_{j-1}, rho^(sub*j) c_b)."""
+    from ame_tpu_torch.ops import wedge_env as wk
+    f32 = np.float32
+    pieces = tuple(pieces)
+    P, n, tp = len(pieces), dep.shape[0], 1 << log_tp
+    T = sub * tp
+    nb = -(-n // T)
+    a, rho = wk._piece_arrays(pieces)
+    pw = wk._power_table(pieces, sub, log_tp)[:, :P]
+    row_t, row_w = tp + 1, tp + 34
+    up = np.zeros(nb * T, f32)
+    up[:n] = dep
+    x = up.reshape(nb, tp, sub)
+    if reverse:
+        x = x[::-1, ::-1, ::-1]
+    lanes = np.arange(32)
+
+    def shuffle_scan(v, rows):          # in-warp Hillis-Steele over axis -2
+        for l, r in enumerate(rows):
+            off = 1 << l
+            v[..., off:, :] = np.maximum(v[..., off:, :],
+                                         pw[r] * v[..., :-off, :])
+        return v
+
+    # 1. rows from zero, then the scan inside the tile
+    s = np.zeros((nb, tp, P), f32)
+    for i in range(sub):
+        s = np.maximum(x[:, :, i, None], rho * s)
+    s = shuffle_scan(s.reshape(nb, tp // 32, 32, P), [1, 2, 4, 8, 16])
+    wt = s[:, :, 31].copy()
+    c = np.zeros((nb, P), f32)
+    for w in range(1, tp // 32):
+        c = np.maximum(wt[:, w - 1], pw[32] * c)
+        s[:, w] = np.maximum(s[:, w], pw[lanes + 1] * c[:, None])
+    S = s.reshape(nb, tp, P)
+    # 2. the carries across tiles
+    E, C, cin = S[:, tp - 1], np.zeros((nb, P), f32), np.zeros(P, f32)
+    W = carry_threads // 32
+    for base in range(0, nb, carry_threads):
+        v = np.zeros((carry_threads, P), f32)
+        cnt = max(0, min(carry_threads, nb - 1 - base))
+        v[:cnt] = E[base:base + cnt]
+        v[0] = np.maximum(v[0], pw[row_t + 1] * cin)
+        v = shuffle_scan(v.reshape(W, 32, P),
+                         [row_t + (1 << l) for l in range(5)])
+        xw = np.zeros((32, P), f32)
+        xw[:W] = v[:, 31]
+        xw = shuffle_scan(xw, [row_w + l for l in range(5)])
+        v[1:] = np.maximum(v[1:], pw[row_t + 1 + lanes] * xw[:W - 1, None])
+        v = v.reshape(carry_threads, P)
+        b = base + np.arange(carry_threads)
+        C[b[b + 1 < nb] + 1] = v[b + 1 < nb]
+        cin = v[-1]
+    # 3. every row re-walked from its start state
+    prev = np.zeros_like(S)
+    prev[:, 1:] = S[:, :-1]
+    s = np.maximum(prev, pw[:tp] * C[:, None])
+    env = np.empty((nb, tp, sub), f32)
+    for i in range(sub):
+        s = np.maximum(x[:, :, i, None], rho * s)
+        env[:, :, i] = np.min(a * s, axis=-1)
+    if reverse:
+        env = env[::-1, ::-1, ::-1]
+    return env.reshape(-1)[:n]
 
 
-@pytest.mark.parametrize("reverse", [False, True], ids=["release", "attack"])
-def test_wedge_env_three_phase_matches_plain(reverse):
-    """K1's design (block scan with rho^tb carries) against the plain
-    12-scan form, within the 1e-5 the card is held to: a ragged length
-    and a block much shorter than the release wedge."""
-    from ame_tpu_torch.ops.wedge_env import wedge_env_plain
-    rng = np.random.default_rng(2)
-    peak = np.abs(rng.standard_normal(5000)).astype(np.float32)
-    dep = np.maximum(0.0, 1.0 - 0.98 / np.maximum(peak, 1e-9)).astype(
+def _wedge_depths(n, seed):
+    """Compat depths of |N(0,1)| peaks: zero below 0.98, up to ~0.8."""
+    peak = np.abs(np.random.default_rng(seed).standard_normal(n))
+    return np.maximum(0.0, 1.0 - 0.98 / np.maximum(peak, 1e-9)).astype(
         np.float32)
-    pieces = limiter._wedge_pieces(2205.0 if not reverse else 220.0)
-    want = wedge_env_plain(_t(dep), pieces, reverse).numpy()
-    got = _wedge_three_phase(dep, pieces, reverse, 256)
+
+
+# (pieces' width, reverse): the chain's release and attack sides, and the
+# long release wedge run backwards, whose carries cross many tiles
+WEDGE_SIDES = {"release": (2205.0, False), "attack": (220.0, True),
+               "release_reversed": (2205.0, True)}
+
+
+@pytest.mark.parametrize("n", [20, 777, 8192, 8193, 2 * 8192 + 5 * 32 + 7,
+                               3 * 8192 + 1234],
+                         ids=["sub_block", "one_tile_ragged", "one_tile",
+                              "tile_plus_1", "two_tiles_ragged",
+                              "three_tiles_ragged"])
+@pytest.mark.parametrize("side", sorted(WEDGE_SIDES))
+def test_wedge_env_tiled_matches_plain(side, n):
+    """K1's decomposition at the kernel's own geometry (32-sample rows, 256
+    rows a tile, 1024-tile carry chunks), emulated in float32 numpy,
+    against the plain 12-scan form within the 1e-5 the card is held to:
+    shorter than a row, inside one tile, exactly one tile, a tile + 1, and
+    several tiles with a ragged end."""
+    from ame_tpu_torch.ops import wedge_env as wk
+    width, reverse = WEDGE_SIDES[side]
+    pieces = limiter._wedge_pieces(width)
+    dep = _wedge_depths(n, seed=n)
+    sub, log_tp, _ = wk._geometry(n)
+    got = _wedge_tiled(dep, pieces, reverse, sub, log_tp, wk._CARRY_THREADS)
+    want = wk.wedge_env_plain(_t(dep), pieces, reverse).numpy()
+    assert np.abs(got - want).max() <= 1e-5
+    assert want.max() > 0.1
+
+
+@pytest.mark.parametrize("side", ["release", "attack"])
+def test_wedge_env_tiled_matches_reference_kernel(side):
+    """The same emulation against ame_tpu's Pallas wedge kernel
+    (``_wedge_env``, run in the interpreter) on 70000 samples: two of its
+    [128, 512] tiles, nine of the port's."""
+    from ame_tpu.ops.limiter import _wedge_env as ref
+    from ame_tpu_torch.ops import wedge_env as wk
+    width, reverse = WEDGE_SIDES[side]
+    pieces = limiter._wedge_pieces(width)
+    dep = _wedge_depths(70000, seed=11)
+    want = np.asarray(ref(jnp.asarray(dep), pieces, reverse, interpret=True))
+    sub, log_tp, _ = wk._geometry(dep.shape[0])
+    got = _wedge_tiled(dep, pieces, reverse, sub, log_tp, wk._CARRY_THREADS)
     assert np.abs(got - want).max() <= 1e-5
     assert want.max() > 0.5
+
+
+@pytest.mark.parametrize("n", [3, 256, 257, 129 * 256 - 100],
+                         ids=["sub_block", "one_tile", "tile_plus_1",
+                              "three_chunks"])
+@pytest.mark.parametrize("side", sorted(WEDGE_SIDES))
+def test_wedge_env_tiled_small_geometry_matches_plain(side, n):
+    """The same decomposition at a small geometry (4-sample rows, 64 rows in
+    two warps a tile, 64-tile carry chunks in two warps), so the warp fold,
+    the lane powers and the chunk carry-in all run at test size: 129 tiles
+    make three chunks."""
+    width, reverse = WEDGE_SIDES[side]
+    pieces = limiter._wedge_pieces(width)
+    dep = _wedge_depths(n, seed=n + 1)
+    from ame_tpu_torch.ops.wedge_env import wedge_env_plain
+    got = _wedge_tiled(dep, pieces, reverse, 4, 6, 64)
+    want = wedge_env_plain(_t(dep), pieces, reverse).numpy()
+    assert np.abs(got - want).max() <= 1e-5
+
+
+@pytest.mark.parametrize("width", [220.0, 240.0, 2205.0, 2400.0])
+def test_wedge_power_table_is_the_rounded_float64_power(width):
+    """Every entry of K1's power table lies in [0, 1] and is the float64
+    power of the f32 rho the walks use, rounded to f32 once: rho^(SUB*j)
+    for j <= 256, rho^(T*k) for k <= 32, rho^(32*T*2^l) for l < 5 (44.1
+    and 48 kHz attack and release widths)."""
+    from ame_tpu_torch.ops import wedge_env as wk
+    pieces = limiter._wedge_pieces(width)
+    sub, log_tp, _ = wk._geometry(1)
+    table = wk._power_table(pieces, sub, log_tp)
+    tp = 1 << log_tp
+    T = sub * tp
+    assert table.shape == (tp + 39, wk._PW) and table.dtype == np.float32
+    assert np.all(table >= 0.0) and np.all(table <= 1.0)
+    assert np.all(table[:, len(pieces):] == 0.0)
+    rho = np.float32([r for _, r in pieces]).astype(np.float64)
+    exps = ([sub * j for j in range(tp + 1)] + [T * k for k in range(33)]
+            + [32 * T * 2 ** l for l in range(5)])
+    for row, e in zip(table, exps):
+        np.testing.assert_array_equal(row[:len(pieces)],
+                                      (rho ** e).astype(np.float32))
+    assert np.all(table[0, :len(pieces)] == 1.0)
+    assert np.all(table[tp + 1, :len(pieces)] == 1.0)
+
+
+def test_wedge_env_geometry():
+    """K1's tiles: 32-sample rows (one walker each), 256 rows = 8 warps a
+    tile (8192 samples, 32 KB), tiles counted up to the ragged end; the
+    carry scan takes 1024 tiles a chunk, so the main path's [2^23 + 1234]
+    makes 1025 tiles in two chunks and 2^18 walkers per pass."""
+    from ame_tpu_torch.ops import wedge_env as wk
+    assert wk._geometry((1 << 23) + 1234) == (32, 8, 1025)
+    assert wk._geometry(1 << 23)[2] == 1024
+    for n in (1, 31, 32, 8191, 8192, 8193, 100000):
+        sub, log_tp, nb = wk._geometry(n)
+        tile = sub << log_tp
+        assert (nb - 1) * tile < n <= nb * tile
+        assert (1 << log_tp) % 32 == 0 and tile * 4 == 32 * 1024
+    assert wk._CARRY_THREADS % 32 == 0 and wk._CARRY_THREADS // 32 <= 32
 
 
 def test_cuda_wrappers_raise_on_cpu_tensors():

@@ -109,6 +109,109 @@ def test_two_pass_plain_kernels_bit_equal_scan():
     np.testing.assert_array_equal(got, want)
 
 
+def _walk_starts(m, resets, init, ia, ir):
+    """The states before every 32-sample group of the numpy walk, zeroed
+    at flagged groups: what pass 1 must return."""
+    ng = -(-m.shape[1] // pg._K)
+    att, out = init.copy(), np.empty((m.shape[0], ng), np.float32)
+    for q in range(ng):
+        if resets is not None and resets[q] != 0:
+            att = np.zeros_like(att)
+        out[:, q] = att
+        att = _walk(m[:, q * pg._K:(q + 1) * pg._K], ia, ir, att)[:, -1]
+    return out
+
+
+def _p1_ring_walk(m, resets, init, ia, ir):
+    """float32 numpy emulation of gain_p1's ring (csrc/pydub_gain.cu) at the
+    wrapper's geometry (``_p1_ring``), in one order the producer and the
+    walker may take: the producer stores the starts of the stage a slot
+    held, then fills slot k % stages with stage k's m (zero past n) and
+    reset flags; the walker walks each full group of the stage out of the
+    slot, zeroing the state on a flag and writing the group's start into
+    the slot; the ragged last group only records its start; the starts of
+    the stages left in the ring are stored last."""
+    stage, stages = pg._p1_ring()
+    K, f32 = pg._K, np.float32
+    gps = stage // K
+    G, n = m.shape
+    ng, nfull = -(-n // K), n // K
+    nst = -(-ng // gps)
+    ia, ir = f32(ia), f32(ir)
+    ring = np.zeros((stages, G, stage), f32)
+    flags = np.zeros((stages, gps), f32)
+    ring_starts = np.zeros((stages, G, gps), f32)
+    starts = np.full((G, ng), np.nan, f32)
+    att = init.astype(f32).copy()
+
+    def store(k):
+        q = k * gps + np.arange(gps)
+        starts[:, q[q < ng]] = ring_starts[k % stages][:, q < ng]
+
+    for k in range(nst):
+        s = k % stages
+        if k >= stages:
+            store(k - stages)
+        t = k * stage + np.arange(stage)
+        v = np.zeros((G, stage), f32)
+        v[:, t < n] = m[:, t[t < n]]
+        ring[s] = v
+        q = k * gps + np.arange(gps)
+        flags[s] = 0.0 if resets is None else np.where(
+            q < ng, resets[np.minimum(q, ng - 1)], 0.0)
+        for o in range(min(gps, ng - k * gps)):
+            if flags[s, o] != 0:
+                att = np.zeros_like(att)
+            ring_starts[s][:, o] = att
+            if k * gps + o < nfull:
+                for i in range(o * K, (o + 1) * K):
+                    mm = ring[s, :, i]
+                    att = np.where(att <= mm, np.minimum(att + mm * ia, mm),
+                                   np.maximum(att - mm * ir, f32(0.0)))
+    for k in range(max(nst - stages, 0), nst):
+        store(k)
+    assert not np.isnan(starts).any()
+    return starts
+
+
+@pytest.mark.parametrize("flagged", [False, True], ids=["no_resets", "resets"])
+@pytest.mark.parametrize("n", [5, 32, 1024, 1024 + 17, 3 * 1024 + 517,
+                               17 * 1024 + 45],
+                         ids=["part_group", "one_group", "one_stage",
+                              "stage_ragged", "stages_ragged", "ring_wraps"])
+def test_p1_ring_walk_bit_equal_plain(n, flagged):
+    """K3's ring design, emulated, returns the plain pass 1's starts bit for
+    bit (and the numpy walk's): shorter than a group, one group, exactly
+    one stage, a stage and a ragged group, several stages, and more stages
+    than the ring holds (its slots reused); with and without reset flags
+    (group 0 zeroes the given init)."""
+    m = _bursts(max(n, 8), seed=n)[:, :n].copy()
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    init = np.asarray([0.0, 1.5, 7.0], np.float32)
+    ng = -(-n // pg._K)
+    resets = None
+    if flagged:
+        resets = np.zeros(ng, np.float32)
+        resets[[q for q in (0, 1, 31, 32, 40, 200, 530) if q < ng]] = 1.0
+    got = _p1_ring_walk(m, resets, init, ia, ir)
+    want = pg.gain_p1_plain(torch.from_numpy(m),
+                            None if resets is None else torch.from_numpy(
+                                resets), torch.from_numpy(init), ia, ir)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(got, _walk_starts(m, resets, init, ia, ir))
+
+
+def test_p1_ring_geometry():
+    """gain_p1's ring: one 32-sample group per producer lane in a stage,
+    8-16 stages of 1-4 K samples, and the ring (m, a reset flag and a start
+    per group, two mbarriers a stage: P1Ring in pydub_gain.cu) within the
+    232448 bytes of shared memory one H100 block can have."""
+    stage, stages = pg._p1_ring()
+    assert stage // pg._K == 32 and stage % pg._K == 0
+    assert 8 <= stages <= 16 and 1024 <= stage <= 4096
+    assert stages * ((stage + 2 * stage // pg._K) * 4 + 2 * 8) <= 232448
+
+
 def test_jacobi_plain_sweep_reproduces_true_carries():
     """K2's plain version: a sweep started from the walk's own states at
     the segment starts returns the next segment starts, and the full
