@@ -26,8 +26,8 @@
 //     rule stay on the host (ops/pydub_gain.py), one synchronisation per
 //     sweep.
 //
-// What bounds them on an H100 (gain_p1: below):
-//   gain_p2 and gain_jacobi read m once and write their output once; the
+// What bounds them on an H100 (gain_p1 and gain_p2: below):
+//   gain_jacobi reads m once and writes its output once; the
 //   walk is a chain of about three dependent f32 operations a step (add or
 //   sub, min or max, select), ~25 us for gain_jacobi's 4096 steps, so once
 //   the loads stream, bytes bound gain_jacobi: 0.030 ms a carry sweep and
@@ -66,10 +66,28 @@
 // walker 96 registers of prefetch instead of 32, and the compiler then
 // delays the next group's loads until the chain needs them: slower.)
 //
-// gain_p2 runs one thread per (chain, 32-sample group) from the pass-1
-// start state and writes att [G, N]; the TPU transposed [512, 32] tiles on
-// the MXU to put groups on lanes, here a thread is a group and needs no
-// transpose.
+// gain_p2 re-runs every 32-sample group from its pass-1 start state and
+// writes att [G, N]. The TPU transposed [512, 32] tiles on the MXU to put
+// groups on lanes; here a thread walks a group, and shared memory does the
+// transpose. It moves 2 * 4 * G * N bytes plus the starts, and the walks
+// (32 steps, ~550 cycles a group, 2^18 groups a chain) hide behind the
+// loads, so bytes bound it: 0.061 ms at [3, 2^23] (3.35 TB/s). What
+// reaches that is the access pattern. A block owns a tile of P2_TG
+// consecutive groups of one chain (grid: tiles x chains, so no thread
+// divides an index); the tile's m arrives with coalesced cp.async copies
+// into shared memory, thread r walks group r there from its start (one
+// coalesced load of the starts), writes att over m in place, and the block
+// stores the tile coalesced. Group r's row of 32 floats holds its 16-byte
+// chunk c at chunk c ^ (r & 7) (p2_swz): the walker's 128-bit loads and
+// stores then hit 8 different chunks in each quarter-warp phase, and the
+// copies' and stores' rows stay conflict-free too (a [P2_TG][32] layout
+// would put lane r's sample j of every group in one bank: 32-way
+// conflicts). Rows of chain g start at float g * N, so 16-byte copies need
+// N % 4 == 0 and aligned bases (VEC); any other input takes the 4-byte
+// route of the same kernel (a warp still moves 128 contiguous bytes).
+// Samples past N are zero-filled (the walk needs no mask: m == 0 leaves
+// the state unchanged) and their stores are masked. One block a tile: the
+// resident blocks of an SM overlap one tile's loads with another's walk.
 
 #include <cuda_runtime.h>
 
@@ -264,30 +282,116 @@ __global__ void gain_floor(const float* __restrict__ m, float* __restrict__ out,
   out[g] = att;
 }
 
-__global__ void gain_p2(const float* __restrict__ m,
-                        const float* __restrict__ starts,
-                        float* __restrict__ att_out, long long n, int G,
-                        float ia, float ir) {
-  const long long ng = (n + GROUP - 1) / GROUP;
-  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (tid >= ng * G) return;
-  const long long g = tid / ng, k = tid % ng;
-  const float* mg = m + g * n;
-  float* og = att_out + g * n;
-  float att = starts[g * ng + k];
-  const long long t0 = k * GROUP;
-  if (t0 + GROUP <= n) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+#define P2_TG 128                    // groups a tile = threads a block
+#define P2_TILE (P2_TG * GROUP)      // samples a tile (16 KB)
+
+// where sample j of group r sits in a tile: chunk j/4 of the group's row
+// at chunk (j/4) ^ (r & 7)
+__device__ __forceinline__ int p2_swz(int r, int j) {
+  return r * GROUP + ((((j >> 2) ^ r) & 7) << 2) + (j & 3);
+}
+
+// the tile at mt (its first sample; lim of its samples lie before n) into
+// st, zero past lim: 16-byte copies (VEC), else 4-byte ones; a
+// quarter-warp's 16-byte copies (or a warp's 4-byte ones) fill one group's
+// row. Offsets are 32-bit from the tile's base, so the copies of a thread
+// share one 64-bit address.
+template <bool VEC>
+__device__ __forceinline__ void p2_load(float* st, const float* mt, int lim) {
+  if (VEC) {
 #pragma unroll
-    for (int j = 0; j < GROUP; ++j) {
-      att = gain_update(att, mg[t0 + j], ia, ir);
-      og[t0 + j] = att;
+    for (int i = 0; i < P2_TILE / 4 / P2_TG; ++i) {
+      const int c = threadIdx.x + P2_TG * i;
+      const bool v = 4 * c < lim;
+      cp_async16(st + p2_swz(c >> 3, 4 * (c & 7)), mt + (v ? 4 * c : 0), v);
     }
   } else {
-    for (long long t = t0; t < n; ++t) {
-      att = gain_update(att, mg[t], ia, ir);
-      og[t] = att;
+#pragma unroll
+    for (int i = 0; i < P2_TILE / P2_TG; ++i) {
+      const int e = threadIdx.x + P2_TG * i;
+      const bool v = e < lim;
+      cp_async4(st + p2_swz(e >> 5, e & 31), mt + (v ? e : 0), v);
     }
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// the tile st (holding att) to ot, its first lim samples
+template <bool VEC>
+__device__ __forceinline__ void p2_store(const float* st, float* ot, int lim) {
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < P2_TILE / 4 / P2_TG; ++i) {
+      const int c = threadIdx.x + P2_TG * i;
+      if (4 * c < lim)
+        *reinterpret_cast<float4*>(ot + 4 * c) =
+            *reinterpret_cast<const float4*>(st + p2_swz(c >> 3, 4 * (c & 7)));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < P2_TILE / P2_TG; ++i) {
+      const int e = threadIdx.x + P2_TG * i;
+      if (e < lim) ot[e] = st[p2_swz(e >> 5, e & 31)];
+    }
+  }
+}
+
+// thread r walks group r of the tile from att, writing att over m
+__device__ __forceinline__ void p2_walk(float* st, float att, float ia,
+                                        float ir) {
+  const int r = threadIdx.x;
+  float4 v[GROUP / 4];
+#pragma unroll
+  for (int q = 0; q < GROUP / 4; ++q)
+    v[q] = *reinterpret_cast<const float4*>(st + p2_swz(r, 4 * q));
+#pragma unroll
+  for (int q = 0; q < GROUP / 4; ++q) {
+    att = gain_update(att, v[q].x, ia, ir);
+    v[q].x = att;
+    att = gain_update(att, v[q].y, ia, ir);
+    v[q].y = att;
+    att = gain_update(att, v[q].z, ia, ir);
+    v[q].z = att;
+    att = gain_update(att, v[q].w, ia, ir);
+    v[q].w = att;
+    *reinterpret_cast<float4*>(st + p2_swz(r, 4 * q)) = v[q];
+  }
+}
+
+// blockIdx.y: the chain; blockIdx.x: the tile
+template <bool VEC>
+__global__ void __launch_bounds__(P2_TG)
+    gain_p2(const float* __restrict__ m, const float* __restrict__ starts,
+            float* __restrict__ att_out, long long n, float ia, float ir) {
+  __shared__ __align__(16) float st[P2_TILE];
+  const long long ng = (n + GROUP - 1) / GROUP;
+  const long long g = blockIdx.y, t0 = (long long)blockIdx.x * P2_TILE;
+  const long long left = n - t0;
+  const int lim = left < P2_TILE ? (int)left : P2_TILE;   // samples before n
+  p2_load<VEC>(st, m + g * n + t0, lim);
+  const long long q = (long long)blockIdx.x * P2_TG + threadIdx.x;
+  const float a0 = q < ng ? starts[g * ng + q] : 0.f;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();         // the tile has landed
+  p2_walk(st, a0, ia, ir);
+  __syncthreads();         // the tile holds att
+  p2_store<VEC>(st, att_out + g * n + t0, lim);
 }
 
 #define JAC_LANES 32     // lanes (segments) per block: one warp
@@ -300,14 +404,6 @@ struct JacRing {
   static constexpr int ROWS = FULL ? 32 : 64;
   static constexpr int STAGES = FULL ? 8 : 5;
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
 
 // Stage k of this block: rows t0 = k*JAC_ROWS.. of lanes l0..l0+31, into
 // st [JAC_ROWS][JAC_LANES]; out-of-range rows and lanes are zero-filled.
@@ -412,15 +508,22 @@ extern "C" int gain_floor_f32(const float* m, float* out, long long n, int G,
   return (int)cudaGetLastError();
 }
 
-// m [G, n]; starts [G, ceil(n/32)]; att [G, n].
+// m [G, n]; starts [G, ceil(n/32)]; att [G, n]. tile: the groups a tile the
+// caller assumes (ops/pydub_gain.py::_p2_tile), checked against this
+// build's. 16-byte copies where every row of m and att is 16-byte aligned,
+// else the 4-byte route.
 extern "C" int gain_p2_f32(const float* m, const float* starts, float* att,
-                           long long n, int G, float ia, float ir,
+                           long long n, int G, int tile, float ia, float ir,
                            void* stream) {
-  if (n < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const long long total = ((n + GROUP - 1) / GROUP) * G;
-  gain_p2<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-            (cudaStream_t)stream>>>(m, starts, att, n, G, ia, ir);
+  if (n < 1 || n > (1LL << 35) || G < 1 || G > 65535 || tile != P2_TG)
+    return (int)cudaErrorInvalidValue;
+  const long long ntiles = ((n + GROUP - 1) / GROUP + P2_TG - 1) / P2_TG;
+  const dim3 grid((unsigned)ntiles, (unsigned)G);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n % 4 == 0 && (size_t)m % 16 == 0 && (size_t)att % 16 == 0)
+    gain_p2<true><<<grid, P2_TG, 0, st>>>(m, starts, att, n, ia, ir);
+  else
+    gain_p2<false><<<grid, P2_TG, 0, st>>>(m, starts, att, n, ia, ir);
   return (int)cudaGetLastError();
 }
 

@@ -92,6 +92,7 @@ def _gain_scan(m: torch.Tensor, inv_a: float, inv_r: float,
 
 _P1_STAGE = 1024     # samples per ring stage of gain_p1 (P1_STAGE)
 _P1_STAGES = 16      # stages in its ring (P1_STAGES)
+_P2_TG = 128         # groups a tile of gain_p2 (P2_TG), one a thread
 
 
 def _p1_ring():
@@ -101,13 +102,20 @@ def _p1_ring():
     return _P1_STAGE, _P1_STAGES
 
 
+def _p2_tile() -> int:
+    """gain_p2's tile: this many consecutive 32-sample groups of one chain
+    in shared memory, one walked by each thread of the block; the kernel
+    checks it against its build."""
+    return _P2_TG
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build("pydub_gain")["path"]))
     f, p, ll, i = ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong, \
         ctypes.c_int
     lib.gain_p1_f32.argtypes = [p, p, p, p, ll, i, i, i, f, f, p]
-    lib.gain_p2_f32.argtypes = [p, p, p, ll, i, f, f, p]
+    lib.gain_p2_f32.argtypes = [p, p, p, ll, i, i, f, f, p]
     lib.gain_jacobi_f32.argtypes = [p, p, p, p, ll, i, f, f, p]
     lib.gain_floor_f32.argtypes = [p, p, ll, i, f, f, p]
     for fn in (lib.gain_p1_f32, lib.gain_p2_f32, lib.gain_jacobi_f32,
@@ -191,7 +199,8 @@ def gain_p2_cuda(m: torch.Tensor, starts: torch.Tensor, inv_a: float,
     att = torch.empty_like(m)
     with torch.cuda.device(m.device):
         _launch("gain_p2_f32", _lib().gain_p2_f32, m.data_ptr(),
-                starts.data_ptr(), att.data_ptr(), n, G, inv_a, inv_r)
+                starts.data_ptr(), att.data_ptr(), n, G, _p2_tile(), inv_a,
+                inv_r)
     gain_p2_cuda.launches += 1
     return att
 

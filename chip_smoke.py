@@ -43,7 +43,10 @@ failure raises and the script exits non-zero without the final line:
      K2's carry sweep (no att written) against its plain version too, and
      its carry and full sweeps timed apart; K3's floor (gain_floor: the
      same step 2^23 times a chain from registers) with the SM clock
-     sampled while it runs;
+     sampled while it runs; K4 also on random m and starts at
+     [3, 2^23 + 1234] (rows not 16-byte aligned, a ragged last group: its
+     4-byte copy route) and [3, 2^17 + 7], bit for bit, and timed beside a
+     device copy of m (the practical ceiling for its bytes);
   8. compat main path: master_file (mode="compat", multiband) on a 2^23
      gated noise + 100 Hz WAV that takes every band over its threshold;
      K1 must launch twice, K5 seven times, K2 at least once and K3 / K4
@@ -58,8 +61,9 @@ failure raises and the script exits non-zero without the final line:
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 ``python3 chip_smoke.py --kernel-times [ROOT]`` runs phase 3, K1's check
-and times, K2's sweep times, K3's check, time and floor at [3, 2^23] and
-the three device chains (quality, compat, compat fallback) only, with the
+and times, K2's sweep times, K3's check, time and floor and K4's checks
+and times (with the copy yardstick) at [3, 2^23], K4 at [3, 2^23 + 1234],
+and the three device chains (quality, compat, compat fallback) only, with the
 ame_tpu_torch package under ROOT (default: this checkout; e.g. an unpacked
 parent commit), so that two trees can be timed in turns on one card.
 
@@ -319,16 +323,16 @@ def _compat_cascades() -> dict:
     }
 
 
-def _profile_ms(fn) -> dict:
-    """Device ms per call of fn, by kernel name, from torch.profiler over
-    REPS warm calls (empty when the profiler sees no device time)."""
+def _profile(fn, calls: int) -> dict:
+    """{kernel name: (device ms summed, records)} that torch.profiler kept
+    over `calls` warm calls of fn."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     out = {}
@@ -336,8 +340,27 @@ def _profile_ms(fn) -> dict:
         t = e.self_device_time_total
         if e.device_type == DeviceType.CUDA and t > 0:
             name = re.sub(r"^void |\(.*$", "", e.key)
-            out[name] = out.get(name, 0.0) + t / 1e3 / REPS
+            ms, k = out.get(name, (0.0, 0))
+            out[name] = (ms + t / 1e3, k + e.count)
     return out
+
+
+def _profile_ms(fn) -> dict:
+    """Device ms per call of fn, by kernel name, from torch.profiler over
+    REPS warm calls (empty when the profiler sees no device time)."""
+    return {k: ms / REPS for k, (ms, _) in _profile(fn, REPS).items()}
+
+
+def _launch_ms(fn, calls: int = 20):
+    """(device ms of one launch, records kept) for fn, which launches one
+    kernel: the mean over the records torch.profiler kept of `calls` calls.
+    After a long stream of small launches outside a session it drops the
+    session's first records (PERF.md section 7), so the mean of what it
+    kept stands for a launch and a total over `calls` would not."""
+    kept = list(_profile(fn, calls).values())
+    if len(kept) != 1:
+        return None, sum(k for _, k in kept)
+    return kept[0][0] / kept[0][1], kept[0][1]
 
 
 def _chain_busy(name: str, fn, chain_ms: float) -> dict:
@@ -699,12 +722,14 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     del att_p
     k3 = _p1_kernel(m_main, _sweep_starts(att_tp, G, S, n))
     starts = k3.pop("starts")
-    att_k4 = pg.gain_p2_cuda(m_main, starts, ia, ir)
-    if not torch.equal(att_k4, pg.gain_p2_plain(m_main, starts, ia, ir)):
-        raise AssertionError(f"gain_p2 vs plain at [{G}, {n}]")
+    k4 = _p2_kernel(m_main, starts)
     print(f"gain main-path inputs [{G}, {n}]: gain_jacobi (carry sweep and "
           f"full sweep), gain_p1 and gain_p2 == their plain versions bit for "
           f"bit")
+    # K4 where the rows of chains 1 and 2 are not 16-byte aligned (its
+    # 4-byte route) and the last group is ragged
+    k4["ragged"] = _p2_kernel(*_p2_random(N_KERNEL, 3))
+    _p2_check(*_p2_random(N_GAIN_PLAIN + 7, 4))
 
     # times at 2^23; the plain versions of K2 and K4 at 2^23, of K3 at 2^17
     ms = {
@@ -712,8 +737,7 @@ def phase_gain(m_main: torch.Tensor) -> dict:
                                                             True),
                                 KERNEL_CALLS),
         "gain_p1": k3["ms"],
-        "gain_p2": _cuda_ms(lambda: pg.gain_p2_cuda(m_main, starts, ia, ir),
-                            KERNEL_CALLS),
+        "gain_p2": k4["ms"],
     }
     plain_ms = {
         "gain_jacobi": _cuda_ms(lambda: pg.gain_jacobi_plain(m_t, c, ia, ir,
@@ -737,7 +761,7 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "n": n,
             "errs": errs,
             "bounds": bounds, "engine_ms": engine_ms, "sweeps": sweeps_c,
-            "walk_ms": walk_ms, "carry": carry, "p1": k3}
+            "walk_ms": walk_ms, "carry": carry, "p1": k3, "p2": k4}
 
 
 def _sweep_starts(att_t: torch.Tensor, G: int, S: int, n: int):
@@ -794,6 +818,59 @@ def _p1_kernel(m: torch.Tensor, starts_ref: torch.Tensor) -> dict:
               f"{floor_ms:.4f} ms [{G}, {n}] = {ns:.3f} ns a step "
               f"(SM clock, current / max: {clock}); gain_p1 {ms:.4f} ms = "
               f"{ms / floor_ms:.3f}x the floor")
+    return out
+
+
+def _p2_random(n: int, seed: int):
+    """[3, n] random max-attenuations (|4 N(0,1)| on about half the samples,
+    0 elsewhere and on a run of n/10) and random non-negative starts
+    [3, ceil(n/32)], on the card."""
+    rng = np.random.default_rng(seed)
+    m = np.maximum(0.0, 4.0 * rng.standard_normal((3, n))).astype(np.float32)
+    m[:, n // 3:n // 3 + n // 10] = 0.0
+    starts = (8.0 * rng.random((3, -(-n // 32)))).astype(np.float32)
+    return torch.from_numpy(m).cuda(), torch.from_numpy(starts).cuda()
+
+
+def _p2_check(m: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """K4 on m [G, N] from starts, bit for bit against gain_p2_plain."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    att = pg.gain_p2_cuda(m, starts, ia, ir)
+    want = pg.gain_p2_plain(m, starts, ia, ir)
+    if not torch.equal(att, want):
+        raise AssertionError(f"gain_p2 vs plain at {list(m.shape)}: max diff "
+                             f"{(att - want).abs().max().item()}")
+    print(f"gain_p2 == gain_p2_plain bit for bit {list(m.shape)}")
+    return att
+
+
+def _p2_kernel(m: torch.Tensor, starts: torch.Tensor) -> dict:
+    """K4 on m [G, N] checked (_p2_check), then timed: 10 calls in a row,
+    one call alone, its device time (torch.profiler: the mean launch of 20
+    calls), and beside it a
+    device copy of m into a fresh tensor (about K4's bytes: the practical
+    ceiling)."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    G, n = m.shape
+    _p2_check(m, starts)
+
+    def run():
+        return pg.gain_p2_cuda(m, starts, ia, ir)
+    ms = _cuda_ms(run, KERNEL_CALLS)
+    bound = _gain_bounds(G, n)["gain_p2"]
+    device_ms, records = _launch_ms(run)
+    out = {"n": n, "ms": ms, "one_call_ms": _cuda_ms(run),
+           "device_ms": device_ms, "device_records": records,
+           "copy_ms": _cuda_ms(lambda: m.clone(), KERNEL_CALLS),
+           "bound_ms": bound[0], "bound_share": bound[0] / ms}
+    dev = ("not measured" if device_ms is None
+           else f"{device_ms:.4f} ms, {records} of 20 launches recorded")
+    print(f"gain_p2 [{G}, {n}]: kernel {ms:.4f} ms ({bound[0] / ms:.1%} of "
+          f"its bound {bound[0]:.4f} ms; one call alone "
+          f"{out['one_call_ms']:.4f} ms, device time (torch.profiler) {dev}); "
+          f"device copy of m {out['copy_ms']:.4f} ms")
     return out
 
 
@@ -997,7 +1074,9 @@ def kernel_times(root: str) -> int:
     (checked against plain, timed, split by launch), K1 in both directions
     (checked, timed, split by launch), K2's carry and full sweeps and K3
     (checked bit for bit against the full sweep's states, timed, with its
-    floor when the library has one) on the compat main path's bands, and
+    floor when the library has one) and K4 (from K3's starts, checked and
+    timed beside a device copy of m) on the compat main path's bands, K4
+    on random [3, 2^23 + 1234] input (the 4-byte route), and
     the three device chains (quality, compat, compat fallback:
     master_graph, with the device's busy time), with the ame_tpu_torch
     package found under ROOT (default: this checkout), e.g. an unpacked
@@ -1024,7 +1103,9 @@ def kernel_times(root: str) -> int:
                                    ir, True)
     G, n = m_main.shape
     p1 = _p1_kernel(m_main, _sweep_starts(att_t, G, S, n))
-    del p1["starts"], att_t
+    del att_t
+    p2 = _p2_kernel(m_main, p1.pop("starts"))
+    p2["ragged"] = _p2_kernel(*_p2_random(N_KERNEL, 3))
     rng = np.random.default_rng(0)
     x_quality = torch.from_numpy(np.trunc(np.clip(
         0.1 * rng.standard_normal((N_MAIN, 2)), -1, 1) * 32767.0).astype(
@@ -1041,7 +1122,7 @@ def kernel_times(root: str) -> int:
     print(json.dumps({"kernel_times": {
         "package": os.path.dirname(ame_tpu_torch.__file__),
         "cascade_scan": cascades, "wedge_env": wedge, "gain_jacobi": sweeps,
-        "gain_p1": p1, "chains": chains}}))
+        "gain_p1": p1, "gain_p2": p2, "chains": chains}}))
     return 0
 
 
@@ -1091,8 +1172,13 @@ def main() -> int:
     for name, line in (("gain_jacobi", 307), ("gain_p1", 140),
                        ("gain_p2", 231)):
         path = "compat" if name == "gain_jacobi" else "compat_fallback"
+        p2 = gain["p2"]
         extra = {"gain_jacobi": {"carry_sweep": gain["carry"]},
-                 "gain_p1": {"floor": gain["p1"]["floor"]}}.get(name, {})
+                 "gain_p1": {"floor": gain["p1"]["floor"]},
+                 "gain_p2": {"one_call_ms": p2["one_call_ms"],
+                             "copy_ms": p2["copy_ms"],
+                             "device_ms": p2["device_ms"],
+                             "ragged": p2["ragged"]}}[name]
         kernels.append(entry(
             name, csrc + "pydub_gain.cu", f"{pg_src}:{line}", path,
             gain["errs"][name],

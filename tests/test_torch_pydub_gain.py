@@ -212,6 +212,134 @@ def test_p1_ring_geometry():
     assert stages * ((stage + 2 * stage // pg._K) * 4 + 2 * 8) <= 232448
 
 
+def _p2_swz(r, j):
+    """gain_p2's tile layout (p2_swz): the float offset of sample j of group
+    r, its 16-byte chunk j // 4 stored at chunk (j // 4) ^ (r & 7)."""
+    return r * pg._K + ((((j >> 2) ^ r) & 7) << 2) + (j & 3)
+
+
+def _p2_tiles(m, starts, ia, ir, vec):
+    """float32 numpy emulation of gain_p2 (csrc/pydub_gain.cu) at the
+    wrapper's tile (``_p2_tile``): per chain and tile of TG groups, thread i
+    copies 16-byte chunks c = i + TG*k (``vec``) or floats e = i + TG*k of
+    m into the swizzled tile, zero past n; thread r walks group r from its
+    start (0 past the last group) and writes att over m; the block stores
+    the same chunks or floats back, masked at n. The tile starts as NaN, so
+    a slot the copies miss shows."""
+    TG, K, f32 = pg._p2_tile(), pg._K, np.float32
+    G, n = m.shape
+    tile = TG * K
+    ng = -(-n // K)
+    ia, ir = f32(ia), f32(ir)
+    thr = np.arange(TG)[:, None]
+    if vec:
+        assert n % 4 == 0            # the launcher's rule for 16-byte copies
+        c = (thr + TG * np.arange(tile // 4 // TG)).ravel()
+        src = (4 * c[:, None] + np.arange(4)).ravel()
+        dst = (_p2_swz(c >> 3, 4 * (c & 7))[:, None] + np.arange(4)).ravel()
+        first = np.repeat(4 * c, 4)          # a chunk is copied whole or not
+    else:
+        e = (thr + TG * np.arange(tile // TG)).ravel()
+        src, dst, first = e, _p2_swz(e >> 5, e & 31), e
+    assert np.array_equal(np.sort(dst), np.arange(tile))
+    rows = _p2_swz(np.arange(TG)[:, None], np.arange(K)[None, :])
+    out = np.full((G, n), np.nan, f32)
+    for g in range(G):
+        for x in range(-(-ng // TG)):
+            t0 = x * tile
+            st = np.full(tile, np.nan, f32)
+            ok = t0 + first < n
+            st[dst] = np.where(ok, m[g, np.minimum(t0 + src, n - 1)], 0.0)
+            q = x * TG + np.arange(TG)
+            att = np.where(q < ng, starts[g, np.minimum(q, ng - 1)], 0.0)
+            att = att.astype(f32)
+            for j in range(K):
+                mm = st[rows[:, j]]
+                att = np.where(att <= mm, np.minimum(att + mm * ia, mm),
+                               np.maximum(att - mm * ir, f32(0.0)))
+                st[rows[:, j]] = att
+            out[g, t0 + src[ok]] = st[dst[ok]]
+    assert not np.isnan(out).any()
+    return out
+
+
+_TILE_N = 128 * 32        # one tile of gain_p2 (test_p2_tile_geometry)
+
+
+@pytest.mark.parametrize("n,vec", [
+    (5, False), (32, False), (32, True), (_TILE_N, False), (_TILE_N, True),
+    (_TILE_N + 17, False), (3 * _TILE_N + 518, False),
+    (3 * _TILE_N + 520, True), ((1 << 15) + 3, False)],
+    ids=["part_group", "one_group", "one_group_vec", "one_tile",
+         "one_tile_vec", "tile_ragged", "tiles_n_mod4_2", "tiles_ragged_vec",
+         "many_tiles"])
+def test_p2_tiles_bit_equal_plain(n, vec):
+    """K4's tile design, emulated, on both copy routes: from random
+    non-negative starts it returns gain_p2_plain bit for bit, and from the
+    walk's own starts the numpy walk: shorter than a group, one group, one
+    tile, a tile and a ragged group, several tiles (n % 4 == 2, the rows of
+    chains 1 and 2 not 16-byte aligned: the 4-byte route) and more."""
+    assert _TILE_N == pg._p2_tile() * pg._K
+    rng = np.random.default_rng(n)
+    m = np.maximum(0.0, 4.0 * rng.standard_normal((3, n))).astype(np.float32)
+    m[:, n // 3:n // 3 + n // 10] = 0.0          # a below-threshold run
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    ng = -(-n // pg._K)
+    starts = (8.0 * rng.random((3, ng))).astype(np.float32)
+    got = _p2_tiles(m, starts, ia, ir, vec)
+    want = pg.gain_p2_plain(torch.from_numpy(m), torch.from_numpy(starts),
+                            ia, ir)
+    np.testing.assert_array_equal(got, want.numpy())
+    init = np.asarray([0.0, 1.5, 7.0], np.float32)
+    walk_starts = _walk_starts(m, None, init, ia, ir)
+    np.testing.assert_array_equal(_p2_tiles(m, walk_starts, ia, ir, vec),
+                                  _walk(m, ia, ir, init))
+
+
+def test_p2_tile_geometry():
+    """gain_p2's tile: a thread a group (TG threads, whole warps, a multiple
+    of the swizzle's 8 chunks); the copies split evenly over the threads on
+    both routes; the tile within the 48 KB of static shared memory a block
+    gets without opting in, and small enough that 8 blocks (whose loads
+    and walks overlap) stay resident in an H100 SM's 233472 bytes, 1 KB a
+    block reserved; and the swizzle is a permutation of each group's own
+    32 floats."""
+    TG, K = pg._p2_tile(), pg._K
+    assert TG % 32 == 0 and TG % 8 == 0 and TG <= 1024
+    assert (TG * K) % TG == 0 and (TG * K // 4) % TG == 0
+    assert TG * K * 4 <= 48 * 1024
+    assert 233472 // (TG * K * 4 + 1024) >= 8
+    r = np.arange(TG)[:, None]
+    rows = _p2_swz(r, np.arange(K)[None, :])
+    np.testing.assert_array_equal(np.sort(rows, axis=1), r * K + np.arange(K))
+    # a quarter-warp's 128-bit accesses of one chunk index hit 8 chunks
+    for q in range(K // 4):
+        for r0 in range(0, TG, 8):
+            banks = _p2_swz(np.arange(r0, r0 + 8), 4 * q) % 32 // 4
+            assert len(set(banks.tolist())) == 8
+
+
+def test_gain_p2_plain_matches_reference_kernel():
+    """K4's plain version against ame_tpu's Pallas pass 2 (_p2, interpreted)
+    on one chain of 2 x 512 groups from random starts, within the file's
+    reference tolerance (XLA contracts the update into an FMA)."""
+    from ame_tpu.ops import pydub_gain as ref
+    ng = 2 * ref._BR
+    n = ng * pg._K
+    rng = np.random.default_rng(11)
+    m = np.maximum(0.0, 4.0 * rng.standard_normal((1, n))).astype(np.float32)
+    m[:, 5000:9000] = 0.0
+    starts = (8.0 * rng.random((1, ng))).astype(np.float32)
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    got = pg.gain_p2_plain(torch.from_numpy(m), torch.from_numpy(starts), ia,
+                           ir).numpy()
+    scal = jnp.asarray([[ia, ir]], jnp.float32)
+    want = np.asarray(ref._p2(jnp.asarray(m.reshape(ng, pg._K)),
+                              jnp.asarray(starts), scal, True)).reshape(1, n)
+    _close_to_reference(got, want)
+    assert got.max() > 1.0
+
+
 def test_jacobi_plain_sweep_reproduces_true_carries():
     """K2's plain version: a sweep started from the walk's own states at
     the segment starts returns the next segment starts, and the full
@@ -325,6 +453,15 @@ def test_gain_jacobi_cuda_raises_on_cpu_tensor():
         pg.gain_jacobi_cuda(torch.zeros(64, 8), torch.zeros(8), 0.1, 0.01,
                             True)
     assert pg.gain_jacobi_cuda.launches == before
+
+
+def test_gain_p2_cuda_raises_on_cpu_tensor():
+    """K4's wrapper never runs the plain version: a CPU tensor is an error,
+    and no launch is counted."""
+    before = pg.gain_p2_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pg.gain_p2_cuda(torch.zeros(3, 100), torch.zeros(3, 4), 0.1, 0.01)
+    assert pg.gain_p2_cuda.launches == before
 
 
 def test_pydub_gain_cpu_runs_the_walk():
