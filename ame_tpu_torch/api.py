@@ -147,6 +147,7 @@ def process_audio(settings: Mapping[str, Any],
             status_callback(_not_ported("Musicologist analysis"))
             tag_callback("Analysis unavailable.")
         elif (settings.get("art_prompt") or "").strip():
+            tag_callback("Using manual prompt.")
             status_callback(_not_ported("AI art generation"))
         status_callback("Success: Processing complete! (No art generated)")
         art_callback(None)

@@ -24,7 +24,12 @@
 //     transposes it once), so a row of 32 lanes is 128 contiguous bytes.
 //     The carry refresh, identity bridging, bit-exact acceptance and stall
 //     rule stay on the host (ops/pydub_gain.py), one synchronisation per
-//     sweep.
+//     sweep. Its reset route (template RESETS, the chunked compat path,
+//     _jac_kernel with has_resets=True) also sets a lane's state to 0 at
+//     every flagged 32-sample group start; the flags are one float a
+//     group, [npad/32], shared by the chains (+1/32 of one chain's bytes;
+//     a per-sample plane would add 1/G), and ride the ring with m. The
+//     unchunked route is the RESETS=false instantiation, unchanged.
 //
 // What bounds them on an H100 (gain_p1 and gain_p2: below):
 //   gain_jacobi reads m once and writes its output once; the
@@ -422,19 +427,75 @@ __device__ __forceinline__ void jac_load(float* st, const float* m_t,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <bool FULL>
+// The reset route (RESETS): flags [S * seg_len / 32], one 0/1 value for
+// every 32-sample group of the padded chain, shared by the G chains. Lane l
+// is segment s = l % S, whose row t is sample s * seg_len + t, so its group
+// starts are the rows t = phi + 32 j with phi = -s * seg_len mod 32 (a
+// segment need not start on a group: seg_len = npad / S is any multiple of
+// 8). A stage starts on a multiple of 32 rows and holds ROWS / 32 of them;
+// the lane's flags for those starts (consecutive in the array) arrive with
+// the stage's m, one 4-byte cp.async each, zero past seg_len.
+template <int JAC_ROWS>
+__device__ __forceinline__ void jac_load_flags(float* fl,
+                                               const float* resets,
+                                               long long t0, long long q0,
+                                               int phi, long long seg_len,
+                                               bool lane_ok) {
+#pragma unroll
+  for (int j = 0; j < JAC_ROWS / GROUP; ++j) {
+    const bool v = lane_ok && t0 + phi + GROUP * j < seg_len;
+    cp_async4(fl + j * JAC_LANES + threadIdx.x,
+              v ? resets + q0 + t0 / GROUP + j : resets, v);
+  }
+}
+
+// One stage of rows st [JAC_ROWS][JAC_LANES] walked by this lane from att
+// (att written over m when FULL). CHECK: the state is set to +0 before the
+// update at row phi + 32 j where the lane's flag j in fl is set (the
+// reference multiplies by 1 - r: the same value, att >= 0).
+template <bool FULL, bool CHECK, int JAC_ROWS>
+__device__ __forceinline__ float jac_walk(float* st, float att, float ia,
+                                          float ir, int phi, const float* fl) {
+#pragma unroll
+  for (int r = 0; r < JAC_ROWS; ++r) {
+    if (CHECK && (r & (GROUP - 1)) == phi &&
+        fl[(r / GROUP) * JAC_LANES + threadIdx.x] != 0.f)
+      att = 0.f;
+    att = gain_update(att, st[r * JAC_LANES + threadIdx.x], ia, ir);
+    if (FULL) st[r * JAC_LANES + threadIdx.x] = att;
+  }
+  return att;
+}
+
+template <bool FULL, bool RESETS>
 __global__ void __launch_bounds__(JAC_LANES)
     gain_jacobi(const float* __restrict__ m_t,
                 const float* __restrict__ carry_in,
                 float* __restrict__ carry_out, float* __restrict__ att_t,
-                long long seg_len, int lanes, float ia, float ir) {
+                long long seg_len, int lanes, float ia, float ir,
+                const float* __restrict__ resets, int S) {
   constexpr int JAC_ROWS = JacRing<FULL>::ROWS;
   constexpr int JAC_STAGES = JacRing<FULL>::STAGES;
+  static_assert(JAC_ROWS % GROUP == 0, "a stage holds whole groups");
   __shared__ __align__(16) float ring[JAC_STAGES][JAC_ROWS * JAC_LANES];
+  // the flags of the lanes' group starts, a stage each (1 float unused
+  // without resets)
+  __shared__ float fring[RESETS ? JAC_STAGES : 1]
+                        [RESETS ? JAC_ROWS / GROUP * JAC_LANES : 1];
   const int l0 = blockIdx.x * JAC_LANES, s = l0 + threadIdx.x;
   const long long nst = (seg_len + JAC_ROWS - 1) / JAC_ROWS;
+  int phi = 0;
+  long long q0 = 0;   // flag index of the lane's first group start
+  if constexpr (RESETS) {
+    const long long a = (long long)(s % S) * seg_len;
+    phi = (int)((GROUP - a % GROUP) % GROUP);
+    q0 = (a + phi) / GROUP;
+  }
   for (int k = 0; k < JAC_STAGES - 1; ++k) {
     if (k < nst) {
+      if constexpr (RESETS)
+        jac_load_flags<JAC_ROWS>(fring[k], resets, (long long)k * JAC_ROWS,
+                                 q0, phi, seg_len, s < lanes);
       jac_load<JAC_ROWS>(ring[k], m_t, (long long)k * JAC_ROWS, seg_len,
                          l0, lanes);
     } else {
@@ -449,16 +510,34 @@ __global__ void __launch_bounds__(JAC_LANES)
     __syncthreads();              // all copies seen; stage k-1 is free
     const long long kn = k + JAC_STAGES - 1;
     if (kn < nst) {
+      if constexpr (RESETS)
+        jac_load_flags<JAC_ROWS>(fring[kn % JAC_STAGES], resets,
+                                 kn * JAC_ROWS, q0, phi, seg_len, s < lanes);
       jac_load<JAC_ROWS>(ring[kn % JAC_STAGES], m_t, kn * JAC_ROWS,
                          seg_len, l0, lanes);
     } else {
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
     float* st = ring[k % JAC_STAGES];
+    if constexpr (RESETS) {
+      // a flagged group starts in this stage (rarely): the checked walk
+      const float* fl = fring[k % JAC_STAGES];
+      bool hit = false;
 #pragma unroll
-    for (int r = 0; r < JAC_ROWS; ++r) {
-      att = gain_update(att, st[r * JAC_LANES + threadIdx.x], ia, ir);
-      if (FULL) st[r * JAC_LANES + threadIdx.x] = att;
+      for (int j = 0; j < JAC_ROWS / GROUP; ++j)
+        hit |= fl[j * JAC_LANES + threadIdx.x] != 0.f;
+      if (hit)
+        att = jac_walk<FULL, true, JAC_ROWS>(st, att, ia, ir, phi, fl);
+      else
+        att = jac_walk<FULL, false, JAC_ROWS>(st, att, ia, ir, 0, nullptr);
+    } else {
+      // the unchunked route keeps its own loop: jac_walk<FULL, false> here
+      // builds the full sweep with 131 registers instead of 125 (sm_90a)
+#pragma unroll
+      for (int r = 0; r < JAC_ROWS; ++r) {
+        att = gain_update(att, st[r * JAC_LANES + threadIdx.x], ia, ir);
+        if (FULL) st[r * JAC_LANES + threadIdx.x] = att;
+      }
     }
     if (FULL) {
       __syncthreads();            // the stage holds att
@@ -528,23 +607,34 @@ extern "C" int gain_p2_f32(const float* m, const float* starts, float* att,
 }
 
 // m_t [seg_len, lanes] time-major (lane = g*S + s); carry_in, carry_out
-// [lanes]; att_t [seg_len, lanes] or null (a carry sweep). The 16-byte
-// copies need lanes % 4 == 0 and 16-byte aligned m_t and att_t.
+// [lanes]; att_t [seg_len, lanes] or null (a carry sweep); resets
+// [S * seg_len / 32] group flags shared by the lanes/S chains, or null (the
+// unchunked route, compiled without them). The 16-byte copies need
+// lanes % 4 == 0 and 16-byte aligned m_t and att_t.
 extern "C" int gain_jacobi_f32(const float* m_t, const float* carry_in,
                                float* carry_out, float* att_t,
-                               long long seg_len, int lanes, float ia,
-                               float ir, void* stream) {
+                               const float* resets, long long seg_len,
+                               int lanes, int S, float ia, float ir,
+                               void* stream) {
   if (seg_len < 1 || lanes < 1 || lanes % 4 != 0 || (size_t)m_t % 16 != 0 ||
       (size_t)att_t % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  if (resets && (S < 1 || lanes % S != 0 || (S * seg_len) % GROUP != 0))
+    return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((lanes + JAC_LANES - 1) / JAC_LANES);
   cudaStream_t st = (cudaStream_t)stream;
-  if (att_t)
-    gain_jacobi<true><<<grid, JAC_LANES, 0, st>>>(
-        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir);
+  if (att_t && resets)
+    gain_jacobi<true, true><<<grid, JAC_LANES, 0, st>>>(
+        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir, resets, S);
+  else if (att_t)
+    gain_jacobi<true, false><<<grid, JAC_LANES, 0, st>>>(
+        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir, resets, S);
+  else if (resets)
+    gain_jacobi<false, true><<<grid, JAC_LANES, 0, st>>>(
+        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir, resets, S);
   else
-    gain_jacobi<false><<<grid, JAC_LANES, 0, st>>>(
-        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir);
+    gain_jacobi<false, false><<<grid, JAC_LANES, 0, st>>>(
+        m_t, carry_in, carry_out, att_t, seg_len, lanes, ia, ir, resets, S);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Host-side IIR coefficient design (numpy float64).
 
 Port of ``ame_tpu/dsp/design.py``: ``butter_ba``, ``butter_sos``,
-``reference_peak_band_sos``, ``k_weighting_sos``, ``_shelf_biquad``,
+``reference_peak_band_sos``, ``linkwitz_riley_sos``, ``lr4_allpass_sos``,
+``k_weighting_sos``, ``_shelf_biquad``,
 ``k_weighting_dynamic_sos``, ``rbj_low_shelf``, ``rbj_high_shelf``,
 ``rbj_peaking`` and their helpers ``_rbj_common`` and ``ba_to_sos_biquad``.
 A jax-free copy, since importing ``ame_tpu`` imports jax.
@@ -53,6 +54,25 @@ def reference_peak_band_sos(sample_rate: float, center_hz: float,
     if high >= 1.0:
         high = 0.999999
     return butter_sos(4, [low, high], "bandpass")
+
+
+def linkwitz_riley_sos(order: int, cutoff_hz: float, btype: str,
+                       fs: float) -> np.ndarray:
+    """LR(2n) = squared Butterworth(n): flat-sum crossover. ``order`` is the
+    LR order (must be even)."""
+    if order % 2:
+        raise ValueError("Linkwitz-Riley order must be even")
+    half = butter_sos(order // 2, cutoff_hz, btype, fs=fs)
+    return np.concatenate([half, half], axis=0)
+
+
+def lr4_allpass_sos(cutoff_hz: float, fs: float) -> np.ndarray:
+    """The 2nd-order allpass A(z) with LP_LR4(z) + HP_LR4(z) == A(z): its
+    numerator is the reversed Butterworth-2 denominator. Phase-compensates
+    the lower bands of a multi-way LR4 crossover tree so the recombined sum
+    stays magnitude-flat (graph/multiband._band_cascades_n)."""
+    _, a = butter_ba(2, cutoff_hz / (0.5 * fs), "lowpass")
+    return ba_to_sos_biquad(a[::-1], a)
 
 
 def ba_to_sos_biquad(b: np.ndarray, a: np.ndarray) -> np.ndarray:

@@ -13,13 +13,15 @@ float32 tensor on one device.
   crossover (Q4) with exact pydub compression and saturating adds (Q7),
   ffmpeg's two-pass loudnorm with silent passthrough (Q9) and the
   ffmpeg-contract alimiter, always on (Q8).
+  ``compat_chunked=True`` adds the reference's 30 s segment loop (Q6): the
+  filters, the compressor's detectors and its gain state restart every
+  ``COMPAT_CHUNK_SECONDS`` (read at call time); loudnorm and the limiter
+  stay continuous, as in the reference.
 * ``quality`` is the product chain: RBJ EQ, continuous f32 state, the
+  Linkwitz-Riley multiband (3 bands, or G bands with ``mb_edges``), the
   lookahead limiter.
 
-Not ported yet (ROADMAP.md): chunked compat (``compat_chunked=True``, Q6),
-quality multiband and G-band ``mb_edges``; ``master_graph`` raises
-``NotImplementedError`` for them. The port runs eagerly, so there is no
-fused one-program variant.
+The port runs eagerly, so there is no fused one-program variant.
 """
 
 from __future__ import annotations
@@ -62,21 +64,28 @@ def params_from_settings(s: MasterSettings, device="cpu") -> dict:
     }
 
 
-def _stage_analog_compat(x, analog, sample_rate):
-    y = saturate.analog_character_compat(x, sample_rate, analog)
+def _stage_analog_compat(x, analog, sample_rate, chunk_len=None):
+    y = saturate.analog_character_compat(x, sample_rate, analog, chunk_len)
     return quantize.int16_roundtrip(y)
 
 
 def _stage_eq_width_compat(x, bass, mid_cut, presence, treble, sample_rate,
-                           width_on, width=None):
-    y = eq.apply_eq_compat(x, sample_rate, bass, mid_cut, presence, treble)
+                           width_on, width=None, chunk_len=None):
+    y = eq.apply_eq_compat(x, sample_rate, bass, mid_cut, presence, treble,
+                           chunk_len)
     if width_on:
         y = stereo.stereo_width(y, width)
     return quantize.int16_roundtrip(y)
 
 
-def _stage_multiband_compat(x, threshs, ratios, sample_rate):
-    return mb.multiband_compat(x, sample_rate, threshs, ratios)
+def _stage_multiband_compat(x, threshs, ratios, sample_rate, chunk_len=None):
+    return mb.multiband_compat(x, sample_rate, threshs, ratios, chunk_len)
+
+
+def _stage_multiband_quality(x, threshs, ratios, sample_rate, mb_edges=None):
+    if mb_edges is None:
+        return mb.multiband_quality(x, sample_rate, threshs, ratios)
+    return mb.multiband_quality_n(x, sample_rate, mb_edges, threshs, ratios)
 
 
 def _stage_normalize(x, target, tp, lra, n_valid, sample_rate, requantize):
@@ -140,20 +149,22 @@ class _StageClock:
 
 
 def _master_compat(x, sample_rate, p, *, analog_on, width_on, multiband_on,
-                   lufs_on, n_valid=None, timer=None):
+                   lufs_on, chunked=False, n_valid=None, timer=None):
+    # engine:178: the reference's 30 s segments, read at call time
+    chunk_len = int(C.COMPAT_CHUNK_SECONDS * sample_rate) if chunked else None
     info = {}
     clock = _StageClock(timer, x.device)
     if analog_on:  # engine:192
         x = clock("analog", lambda: _stage_analog_compat(
-            x, p["analog"], sample_rate))
+            x, p["analog"], sample_rate, chunk_len))
     x = clock("eq_width", lambda: _stage_eq_width_compat(  # engine:194-196
         x, p["bass"], p["mid_cut"], p["presence"], p["treble"], sample_rate,
-        width_on, p["width"]))
+        width_on, p["width"], chunk_len))
     if multiband_on:  # engine:197
         # thresholds and ratios design nothing on the device: one fetch
         threshs, ratios = p["threshs"].tolist(), p["ratios"].tolist()
         x = clock("multiband", lambda: _stage_multiband_compat(
-            x, threshs, ratios, sample_rate))
+            x, threshs, ratios, sample_rate, chunk_len))
     if lufs_on:  # engine:216-220
         x, loud_info = clock("loudnorm", lambda: _stage_normalize(
             x, p["lufs"], p["tp"], p["lra"], n_valid, sample_rate, True))
@@ -167,13 +178,16 @@ def _master_compat(x, sample_rate, p, *, analog_on, width_on, multiband_on,
     return x, info
 
 
-def _master_quality(x, sample_rate, p, *, analog_on, width_on, lufs_on,
-                    n_valid=None, timer=None):
+def _master_quality(x, sample_rate, p, *, analog_on, width_on, multiband_on,
+                    lufs_on, n_valid=None, timer=None, mb_edges=None):
     info = {}
     clock = _StageClock(timer, x.device)
     x = clock("analog_eq_width", lambda: _stage_pre_quality(
         x, p["analog"], p["bass"], p["mid_cut"], p["presence"], p["treble"],
         sample_rate, analog_on, width_on, p["width"]))
+    if multiband_on:
+        x = clock("multiband", lambda: _stage_multiband_quality(
+            x, p["threshs"], p["ratios"], sample_rate, mb_edges))
     if lufs_on:
         x, loud_info = clock("loudnorm", lambda: _stage_normalize(
             x, p["lufs"], p["tp"], p["lra"], n_valid, sample_rate, False))
@@ -193,9 +207,7 @@ def master_graph(x: torch.Tensor, sample_rate: float, settings,
       x: [N, 2] float32 tensor in [-1, 1) (int16-grid values in compat mode,
         as ``api.master_array`` stages them); the graph runs on its device.
       sample_rate: track sample rate.
-      settings: MasterSettings (or reference settings dict): compat mode
-        without chunking, with or without multiband, or quality mode
-        without multiband.
+      settings: MasterSettings (or reference settings dict).
       n_valid: true track length when x carries trailing padding.
       timer: optional dict; per-stage seconds are accumulated into it.
 
@@ -211,19 +223,14 @@ def master_graph(x: torch.Tensor, sample_rate: float, settings,
         raise ValueError("mb_edges (G-band multiband) is quality-mode only; "
                          "compat mode is pinned to the reference's 3-band "
                          "stage")
-    if (mode == "compat" and chunked) or (mode != "compat" and multiband_on):
-        raise NotImplementedError(
-            f"ame_tpu_torch does not run mode={mode!r} with "
-            f"compat_chunked={chunked}, multiband={multiband_on}, "
-            f"mb_edges={mb_edges} yet: chunked compat and quality multiband "
-            f"are later port slices, see ROADMAP.md")
     precision.apply()
     p = params_from_settings(settings, x.device)
     if mode == "compat":
         return _master_compat(
             x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
-            multiband_on=multiband_on, lufs_on=lufs_on, n_valid=n_valid,
-            timer=timer)
+            multiband_on=multiband_on, lufs_on=lufs_on, chunked=chunked,
+            n_valid=n_valid, timer=timer)
     return _master_quality(
         x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
-        lufs_on=lufs_on, n_valid=n_valid, timer=timer)
+        multiband_on=multiband_on, lufs_on=lufs_on, n_valid=n_valid,
+        timer=timer, mb_edges=mb_edges)

@@ -11,7 +11,9 @@ reference's blend formulas (engine:283-298):
 with order-2 Butterworth shelf cores and the order-4 reference bandpass
 (``design.reference_peak_band_sos``, quirk Q14). Gains are host floats, so a
 zero-gain band is skipped on the host, as the reference returns its input
-before filtering (engine:284, 291).
+before filtering (engine:284, 291). ``chunk_len`` (chunked compat, quirk
+Q6) runs the cores with their state reset every that many samples
+(``_run_sos``: ``sosfilt_chunked``).
 
 Quality half: ``apply_eq_quality`` with the RBJ closed forms of
 ``_rbj_shelf_coeffs_jnp`` / ``_rbj_peaking_coeffs_jnp``, designed in float64
@@ -25,7 +27,7 @@ import torch
 
 from ame_tpu_torch import config as C
 from ame_tpu_torch.dsp import design
-from ame_tpu_torch.ops.scan_iir import sosfilt
+from ame_tpu_torch.ops.scan_iir import sosfilt, sosfilt_chunked
 
 
 def _gain_minus_one(gain_db: float) -> float:
@@ -53,9 +55,17 @@ def peak_blend_compat(x: torch.Tensor, band: torch.Tensor,
     return x + band * _gain_minus_one(gain_db)
 
 
+def _run_sos(sos, x: torch.Tensor, chunk_len: int | None) -> torch.Tensor:
+    """The cascade over x: continuous state, or reset every ``chunk_len``
+    samples (chunked compat, quirk Q6)."""
+    if chunk_len is None:
+        return sosfilt(sos, x)[0]
+    return sosfilt_chunked(sos, x, chunk_len)
+
+
 def apply_shelf_compat(x: torch.Tensor, sample_rate: float,
-                       cutoff_hz: float, gain_db: float,
-                       filter_type: str) -> torch.Tensor:
+                       cutoff_hz: float, gain_db: float, filter_type: str,
+                       chunk_len: int | None = None) -> torch.Tensor:
     """Reference apply_shelf_filter (engine:283-289): order-2 Butterworth
     LP/HP core (cutoff clamped below Nyquist) + compat blend; gain 0 is a
     no-op."""
@@ -64,32 +74,36 @@ def apply_shelf_compat(x: torch.Tensor, sample_rate: float,
     cutoff_norm = min(cutoff_hz / (0.5 * sample_rate), 0.999999)
     sos = design.ba_to_sos_biquad(*design.butter_ba(2, cutoff_norm,
                                                     filter_type))
-    filtered, _ = sosfilt(sos, x)
-    return shelf_blend_compat(x, filtered, gain_db)
+    return shelf_blend_compat(x, _run_sos(sos, x, chunk_len), gain_db)
 
 
 def apply_peak_compat(x: torch.Tensor, sample_rate: float, center_hz: float,
-                      gain_db: float, q: float = C.PEAK_Q) -> torch.Tensor:
+                      gain_db: float, q: float = C.PEAK_Q,
+                      chunk_len: int | None = None) -> torch.Tensor:
     """Reference apply_peak_filter (engine:290-298): order-4 bandpass core
     (edge clamps Q14) + additive blend; gain 0 is a no-op."""
     if gain_db == 0:
         return x
-    band, _ = sosfilt(design.reference_peak_band_sos(sample_rate, center_hz,
-                                                     q), x)
+    band = _run_sos(design.reference_peak_band_sos(sample_rate, center_hz, q),
+                    x, chunk_len)
     return peak_blend_compat(x, band, gain_db)
 
 
 def apply_eq_compat(x: torch.Tensor, sample_rate: float, bass_db: float,
-                    mid_cut_db: float, presence_db: float,
-                    treble_db: float) -> torch.Tensor:
+                    mid_cut_db: float, presence_db: float, treble_db: float,
+                    chunk_len: int | None = None) -> torch.Tensor:
     """The reference 4-band chain (engine:277-281): low shelf 250 Hz ->
     peak 1 kHz (mid_cut NEGATED, quirk Q3) -> peak 4 kHz -> high shelf
-    8 kHz. Both channels ride one filter call."""
-    x = apply_shelf_compat(x, sample_rate, C.BASS_SHELF_HZ, bass_db, "low")
-    x = apply_peak_compat(x, sample_rate, C.MID_PEAK_HZ, -mid_cut_db)
-    x = apply_peak_compat(x, sample_rate, C.PRESENCE_PEAK_HZ, presence_db)
+    8 kHz. Both channels ride one filter call; ``chunk_len`` resets the
+    filters' state every that many samples (chunked compat)."""
+    x = apply_shelf_compat(x, sample_rate, C.BASS_SHELF_HZ, bass_db, "low",
+                           chunk_len)
+    x = apply_peak_compat(x, sample_rate, C.MID_PEAK_HZ, -mid_cut_db,
+                          C.PEAK_Q, chunk_len)
+    x = apply_peak_compat(x, sample_rate, C.PRESENCE_PEAK_HZ, presence_db,
+                          C.PEAK_Q, chunk_len)
     return apply_shelf_compat(x, sample_rate, C.TREBLE_SHELF_HZ, treble_db,
-                              "high")
+                              "high", chunk_len)
 
 
 def eq_quality_sos(sample_rate: float, bass_db: float, mid_cut_db: float,

@@ -34,6 +34,12 @@ walk ``_gain_scan``.
 
 All three kernels and the plain versions round every product and sum
 separately (no FMA), so they agree bit for bit.
+
+``pydub_gain_chunked`` (chunked compat, quirk Q6) resets the state at every
+chunk start: its chunks are padded to whole 32-sample groups and the engine
+takes one flag a group, which K3 and K2's reset route (``gain_jacobi`` with
+``resets``; ``_jac_kernel`` with ``has_resets=True``) apply at the group's
+start; a segment that holds a reset is never bridged as an identity.
 """
 
 from __future__ import annotations
@@ -73,17 +79,30 @@ def _update(att, m, ma, mr):
 
 
 def _gain_scan(m: torch.Tensor, inv_a: float, inv_r: float,
-               init: torch.Tensor | None = None) -> torch.Tensor:
+               init: torch.Tensor | None = None,
+               resets: torch.Tensor | None = None) -> torch.Tensor:
     """The plain sequential walk. m: [N, G]; init: [G] state entering the
-    first sample (zeros = the pydub track start). Returns att [N, G]."""
+    first sample (zeros = the pydub track start); resets: [N, G] or [N, 1]
+    0/1 flags, the state set to 0 before every flagged sample's step.
+    Returns att [N, G]."""
     att = (m.new_zeros(m.shape[1]) if init is None
            else init.to(m.dtype).clone())
     ma, mr = m * inv_a, m * inv_r
     out = torch.empty_like(m)
     for t in range(m.shape[0]):
+        if resets is not None:
+            att = torch.where(resets[t] != 0, torch.zeros_like(att), att)
         att = _update(att, m[t], ma[t], mr[t])
         out[t] = att
     return out
+
+
+def _gain_scan_reset(m: torch.Tensor, resets: torch.Tensor, inv_a: float,
+                     inv_r: float) -> torch.Tensor:
+    """The plain walk from zero state with the state zeroed wherever
+    resets[t] != 0 (the 30 s chunk-boundary emulation, quirk Q6). m [N, G];
+    resets [N, 1] or [N, G]."""
+    return _gain_scan(m, inv_a, inv_r, None, resets)
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +135,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int
     lib.gain_p1_f32.argtypes = [p, p, p, p, ll, i, i, i, f, f, p]
     lib.gain_p2_f32.argtypes = [p, p, p, ll, i, i, f, f, p]
-    lib.gain_jacobi_f32.argtypes = [p, p, p, p, ll, i, f, f, p]
+    lib.gain_jacobi_f32.argtypes = [p, p, p, p, p, ll, i, i, f, f, p]
     lib.gain_floor_f32.argtypes = [p, p, ll, i, f, f, p]
     for fn in (lib.gain_p1_f32, lib.gain_p2_f32, lib.gain_jacobi_f32,
                lib.gain_floor_f32):
@@ -167,6 +186,8 @@ def gain_p1_cuda(m: torch.Tensor, resets: torch.Tensor | None,
                 init.data_ptr(), starts.data_ptr(), n, G, stage, stages,
                 inv_a, inv_r)
     gain_p1_cuda.launches += 1
+    if resets is not None:
+        gain_p1_cuda.reset_launches += 1
     return starts
 
 
@@ -221,37 +242,77 @@ def gain_p2_plain(m: torch.Tensor, starts: torch.Tensor, inv_a: float,
     return out.reshape(G, ng * _K)[:, :n]
 
 
+def _reset_segments(resets: torch.Tensor, seg_len: int, lanes: int) -> int:
+    """S, the segments a chain of K2's reset route: its group flags cover
+    the padded chain, S * seg_len = 32 * len(resets), and S divides the
+    lanes."""
+    S = _K * resets.shape[0] // seg_len
+    if S < 1 or S * seg_len != _K * resets.shape[0] or lanes % S:
+        raise ValueError(f"resets [{resets.shape[0]}] do not cover whole "
+                         f"segments of {seg_len} samples over {lanes} lanes")
+    return S
+
+
 def gain_jacobi_cuda(m_t: torch.Tensor, carry: torch.Tensor, inv_a: float,
-                     inv_r: float, full: bool):
+                     inv_r: float, full: bool,
+                     resets: torch.Tensor | None = None):
     """K2's counterpart: one sweep. m_t [seg_len, lanes] time-major, lanes
-    a multiple of 4 (G*S, S >= 8); carry [lanes] carry-ins. Returns
-    (carry-outs [lanes], att_t [seg_len, lanes] when ``full`` else None)."""
+    a multiple of 4 (G*S, S >= 8); carry [lanes] carry-ins; resets None
+    (the unchunked route) or [S*seg_len/32] 0/1 flags, one a 32-sample
+    group of the padded chain, shared by the G chains (the reset route).
+    Returns (carry-outs [lanes], att_t [seg_len, lanes] when ``full`` else
+    None)."""
     _check("gain_jacobi_cuda", m_t, 2)
     _check("gain_jacobi_cuda", carry, 1)
     seg_len, lanes = m_t.shape
     if carry.shape[0] != lanes or seg_len == 0 or lanes % 4:
         raise ValueError(f"gain_jacobi_cuda: m_t {tuple(m_t.shape)}, carry "
                          f"{tuple(carry.shape)}")
+    S = 0
+    if resets is not None:
+        _check("gain_jacobi_cuda", resets, 1)
+        S = _reset_segments(resets, seg_len, lanes)
     co = torch.empty_like(carry)
     att_t = torch.empty_like(m_t) if full else None
     with torch.cuda.device(m_t.device):
         _launch("gain_jacobi_f32", _lib().gain_jacobi_f32, m_t.data_ptr(),
                 carry.data_ptr(), co.data_ptr(),
-                None if att_t is None else att_t.data_ptr(), seg_len, lanes,
-                inv_a, inv_r)
+                None if att_t is None else att_t.data_ptr(),
+                None if resets is None else resets.data_ptr(), seg_len,
+                lanes, S, inv_a, inv_r)
     gain_jacobi_cuda.launches += 1
+    if resets is not None:
+        gain_jacobi_cuda.reset_launches += 1
     return co, att_t
 
 
+def _lane_resets(resets: torch.Tensor, seg_len: int,
+                 lanes: int) -> torch.Tensor:
+    """The group flags as K2's lanes meet them: [seg_len, lanes] time-major,
+    the flag of each group start at its row in the lane's segment (lane
+    g*S + s walks samples s*seg_len ..), 0 elsewhere."""
+    S = _reset_segments(resets, seg_len, lanes)
+    per_sample = resets.new_zeros(S * seg_len)
+    per_sample[::_K] = resets
+    return per_sample.reshape(S, seg_len).T.repeat(1, lanes // S)
+
+
 def gain_jacobi_plain(m_t: torch.Tensor, carry: torch.Tensor, inv_a: float,
-                      inv_r: float, full: bool):
-    """K2's plain version: every lane walked from its carry-in."""
-    att_t = _gain_scan(m_t, inv_a, inv_r, carry)
+                      inv_r: float, full: bool,
+                      resets: torch.Tensor | None = None):
+    """K2's plain version: every lane walked from its carry-in, its state
+    zeroed at its flagged group starts."""
+    r_t = (None if resets is None
+           else _lane_resets(resets, m_t.shape[0], m_t.shape[1]))
+    att_t = _gain_scan(m_t, inv_a, inv_r, carry, r_t)
     return att_t[-1].clone(), (att_t if full else None)
 
 
 for _fn in (gain_p1_cuda, gain_p2_cuda, gain_jacobi_cuda):
     _fn.launches = 0
+# launches of K2's reset route and K3 with flags (within the counts above)
+gain_jacobi_cuda.reset_launches = 0
+gain_p1_cuda.reset_launches = 0
 
 
 def _kernels(device: torch.device):
@@ -277,16 +338,33 @@ def _select_S(npad: int) -> int:
     return 1 << max(3, min(_SMAX_LOG, int(math.log2(max(npad // 4096, 8)))))
 
 
+def _identity_segments(m_t: torch.Tensor, G: int, S: int,
+                       resets: torch.Tensor | None = None) -> torch.Tensor:
+    """[G, S] bool: segments whose every step is att -> att exactly, i.e.
+    all-zero m AND no flagged group start inside (a reset is not an
+    identity: bridging past it would carry a stale state). resets: the
+    group flags [S*seg_len/32] or None."""
+    seg_id = (torch.amax(m_t, dim=0) == 0.0).reshape(G, S)
+    if resets is not None:
+        seg_len = m_t.shape[0]
+        q = torch.arange(resets.shape[0], device=m_t.device)
+        held = resets.new_zeros(S).index_add_(0, q * _K // seg_len, resets)
+        seg_id = seg_id & (held == 0.0)[None]
+    return seg_id
+
+
 def _jacobi_carries(m_t: torch.Tensor, G: int, S: int, init: torch.Tensor,
-                    inv_a: float, inv_r: float):
+                    inv_a: float, inv_r: float,
+                    resets: torch.Tensor | None = None):
     """Relax the segment carries of G chains. m_t: [seg_len, G*S]
-    time-major (lane g*S + s is segment s of chain g); init: [G].
+    time-major (lane g*S + s is segment s of chain g); init: [G]; resets:
+    the group flags [S*seg_len/32] shared by the chains, or None.
     Returns (carries [G, S], converged [G] bool tensor, sweeps)."""
     jacobi = _kernels(m_t.device)[0]
     dev = m_t.device
-    # identity segments (all-zero m: every step is att -> att exactly) are
-    # bridged by the last non-identity segment at or before each position
-    seg_id = (torch.amax(m_t, dim=0) == 0.0).reshape(G, S)
+    # identity segments are bridged by the last non-identity segment at or
+    # before each position
+    seg_id = _identity_segments(m_t, G, S, resets)
     ar = torch.arange(S, device=dev).expand(G, S)
     lasti = torch.cummax(torch.where(seg_id, torch.full_like(ar, -1), ar),
                          dim=1).values
@@ -306,7 +384,8 @@ def _jacobi_carries(m_t: torch.Tensor, G: int, S: int, init: torch.Tensor,
         rate = max(nstab - prev_stab, 0)
         if j >= 3 and rate * (_RMAX - j) < G * S - nstab:
             break
-        co, _ = jacobi(m_t, c.reshape(-1).contiguous(), inv_a, inv_r, False)
+        co, _ = jacobi(m_t, c.reshape(-1).contiguous(), inv_a, inv_r, False,
+                       resets)
         nxt = refresh(co.reshape(G, S))
         stable = nxt == c                      # bit-exact acceptance
         done = torch.all(stable, dim=1)
@@ -330,9 +409,10 @@ def _two_pass(m: torch.Tensor, init: torch.Tensor, inv_a: float,
 
 
 def _jacobi(m: torch.Tensor, init: torch.Tensor, inv_a: float,
-            inv_r: float):
-    """The Jacobi half of the engine. m [G, N] -> (att [G, N], or None when
-    no chain converged; converged [G] host bools; sweeps)."""
+            inv_r: float, resets: torch.Tensor | None = None):
+    """The Jacobi half of the engine. m [G, N]; resets None or [ceil(N/32)]
+    group flags (K3's form). -> (att [G, N], or None when no chain
+    converged; converged [G] host bools; sweeps)."""
     G, n = m.shape
     jacobi = _kernels(m.device)[0]
     npad = _pad_block(n)
@@ -342,37 +422,45 @@ def _jacobi(m: torch.Tensor, init: torch.Tensor, inv_a: float,
     # below-threshold freeze, exact, and trimmed afterwards
     m_t = torch.nn.functional.pad(m, (0, npad - n)).reshape(
         G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
-    c_fix, ok, sweeps = _jacobi_carries(m_t, G, S, init, inv_a, inv_r)
+    if resets is not None:
+        resets = torch.nn.functional.pad(resets,
+                                         (0, npad // _K - resets.shape[0]))
+    c_fix, ok, sweeps = _jacobi_carries(m_t, G, S, init, inv_a, inv_r,
+                                        resets)
     ok = ok.tolist()
     if not any(ok):
         return None, ok, sweeps
     _, att_t = jacobi(m_t, c_fix.reshape(-1).contiguous(), inv_a, inv_r,
-                      True)
+                      True, resets)
     att = att_t.reshape(seg_len, G, S).permute(1, 2, 0).reshape(G, npad)
     return att[:, :n].contiguous(), ok, sweeps
 
 
 def _gain_engine_hot(m: torch.Tensor, init: torch.Tensor, inv_a: float,
-                     inv_r: float) -> torch.Tensor:
-    """Jacobi with the per-band two-pass fallback. m [G, N] -> att [G, N]."""
-    att, ok, _ = _jacobi(m, init, inv_a, inv_r)
+                     inv_r: float,
+                     resets: torch.Tensor | None = None) -> torch.Tensor:
+    """Jacobi with the per-band two-pass fallback. m [G, N] -> att [G, N];
+    resets None or [ceil(N/32)] group flags, given to both engines."""
+    att, ok, _ = _jacobi(m, init, inv_a, inv_r, resets)
     if all(ok):
         return att
-    tp = _two_pass(m, init, inv_a, inv_r)
+    tp = _two_pass(m, init, inv_a, inv_r, resets)
     if att is None:
         return tp
     return torch.where(torch.tensor(ok, device=m.device)[:, None], att, tp)
 
 
 def _gain_engine(m: torch.Tensor, init: torch.Tensor, inv_a: float,
-                 inv_r: float) -> torch.Tensor:
+                 inv_r: float,
+                 resets: torch.Tensor | None = None) -> torch.Tensor:
     """The exact engine with the all-silent early-out: when every chain's
     m is identically zero and the state starts at zero, att is zero
-    everywhere exactly, and no kernel runs. m [G, N] -> att [G, N]."""
+    everywhere exactly (resets zero a zero state), and no kernel runs.
+    m [G, N] -> att [G, N]; resets None or [ceil(N/32)] group flags."""
     silent = torch.logical_and(torch.all(init == 0.0), torch.all(m == 0.0))
     if bool(silent.item()):
         return torch.zeros_like(m)
-    return _gain_engine_hot(m, init, inv_a, inv_r)
+    return _gain_engine_hot(m, init, inv_a, inv_r, resets)
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +480,43 @@ def pydub_gain_multi(ms, attack_frames: float, release_frames: float,
             else torch.as_tensor(init, dtype=torch.float32, device=m.device))
     att = _gain_engine(m.contiguous(), init, inv_a, inv_r)
     return [att[g] for g in range(G)]
+
+
+def pydub_gain_chunked(ms, attack_frames: float, release_frames: float,
+                       chunk_len: int):
+    """Exact pydub attenuation with the state reset every ``chunk_len``
+    samples: the reference's 30 s segment loop (quirk Q6), each chunk a
+    fresh pydub call. ms: list of G same-length [N] float32 tensors;
+    returns a list of G [N].
+
+    Each chunk is padded up to whole 32-sample groups and its first group
+    flagged, so the resets land on group starts, where K2's reset route and
+    K3 apply them; the zero padding freezes the state, and the next chunk's
+    flag zeroes it, so the trimmed result is exact."""
+    m = torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in ms])
+    G, n = m.shape
+    inv_a, inv_r = _scal(attack_frames, release_frames)
+    m1, resets = _chunk_layout(m, chunk_len)
+    att = _gain_engine(m1, m.new_zeros(G), inv_a, inv_r, resets)
+    att = att.reshape(G, -(-n // chunk_len), -1)[:, :, :chunk_len].reshape(
+        G, -1)[:, :n]
+    return [att[g] for g in range(G)]
+
+
+def _chunk_layout(m: torch.Tensor, chunk_len: int):
+    """m [G, N] -> (m1 [G, n_chunks * cpad], resets [n_chunks * cpad / 32]):
+    every chunk zero-padded to cpad, a whole number of 32-sample groups,
+    and the first group of each flagged."""
+    G, n = m.shape
+    nc = -(-n // chunk_len)
+    cpad = -(-chunk_len // _K) * _K
+    rows = torch.nn.functional.pad(m, (0, nc * chunk_len - n)).reshape(
+        G, nc, chunk_len)
+    m1 = torch.nn.functional.pad(rows, (0, cpad - chunk_len)).reshape(
+        G, nc * cpad)
+    resets = m.new_zeros(nc * cpad // _K)
+    resets[::cpad // _K] = 1.0
+    return m1.contiguous(), resets
 
 
 def pydub_gain(m: torch.Tensor, attack_frames: float, release_frames: float):

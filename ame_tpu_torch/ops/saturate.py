@@ -5,6 +5,7 @@
     y = tanh(x * drive)
     compat:  compat shelf blend 120 Hz low (+percent/100 dB), then 12 kHz
              high (+1.5*percent/100 dB) — two k=1 Butterworth cores
+             (their state reset every ``chunk_len`` samples when chunked)
     quality: RBJ low shelf 120 Hz -> RBJ high shelf 12 kHz, one k=2 cascade
 """
 
@@ -20,13 +21,14 @@ from ame_tpu_torch.ops.scan_iir import sosfilt
 
 
 def analog_character_compat(x: torch.Tensor, sample_rate: float,
-                            character_percent: float) -> torch.Tensor:
+                            character_percent: float,
+                            chunk_len: int | None = None) -> torch.Tensor:
     factor = character_percent / 100.0
     y = torch.tanh(x * (1.0 + factor * 0.5))
     y = eq.apply_shelf_compat(y, sample_rate, C.ANALOG_LOW_SHELF_HZ,
-                              factor * 1.0, "low")
+                              factor * 1.0, "low", chunk_len)
     return eq.apply_shelf_compat(y, sample_rate, C.ANALOG_HIGH_SHELF_HZ,
-                                 factor * 1.5, "high")
+                                 factor * 1.5, "high", chunk_len)
 
 
 def analog_sos(sample_rate: float, character_percent: float) -> np.ndarray:

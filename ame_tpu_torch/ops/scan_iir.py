@@ -2,8 +2,9 @@
 ``sosfilt`` that every stage of the port calls.
 
 Port of ``ame_tpu/ops/scan_iir.py``: ``_state_space_np`` (the float64 host
-builder of the coupled-form cascade state space) and the scipy zi/zf
-transforms of ``_zi_transforms``. The JAX module's scan engines are not
+construction of the coupled-form cascade state space), the scipy zi/zf
+transforms of ``_zi_transforms`` and ``sosfilt_chunked`` (chunked compat's
+per-chunk state resets). The JAX module's scan engines are not
 ported: in the port a cascade runs through one of two implementations of the
 same math,
 
@@ -124,7 +125,13 @@ def sosfilt(sos, x: torch.Tensor, zi=None):
 
     Returns:
       (y [N, C], zf [k, C, 2]) on x's device.
+
+    A cascade of more than the kernel's 8 sections (an LR4 band of a G-band
+    tree has up to 2(G-1)) runs as consecutive pieces of at most 8, each
+    filtering the one before's output, on either device: composing the
+    pieces is the cascade, and zf is the pieces' zf in order.
     """
+    from ame_tpu_torch.ops.cascade_scan import _MAX_SECTIONS
     sos = np.ascontiguousarray(np.asarray(sos, np.float64))
     if sos.ndim != 2 or sos.shape[1] != 6:
         raise ValueError(f"sos must be [k, 6], got {sos.shape}")
@@ -133,6 +140,13 @@ def sosfilt(sos, x: torch.Tensor, zi=None):
     if zi is not None:
         zi = torch.as_tensor(zi, dtype=torch.float32,
                              device=x.device).contiguous()
+    if sos.shape[0] > _MAX_SECTIONS:
+        zfs = []
+        for i in range(0, sos.shape[0], _MAX_SECTIONS):
+            x, zf = sosfilt(sos[i:i + _MAX_SECTIONS], x,
+                            None if zi is None else zi[i:i + _MAX_SECTIONS])
+            zfs.append(zf)
+        return x, torch.cat(zfs)
     if x.is_cuda:
         from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
         return sosfilt_cuda(sos, x.contiguous(), zi)
@@ -140,3 +154,19 @@ def sosfilt(sos, x: torch.Tensor, zi=None):
         from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
         return sosfilt_tileconv(sos, x, zi)
     raise ValueError(f"sosfilt: unsupported device {x.device}")
+
+
+def sosfilt_chunked(sos, x: torch.Tensor, chunk_len: int) -> torch.Tensor:
+    """``sosfilt`` with the filter state reset every ``chunk_len`` samples
+    along axis 0: the reference's 30 s segment loop, each chunk filtered
+    from zero state (quirk Q6). The chunks become columns, [chunk_len,
+    n_chunks * C] (column j * C + c is channel c of chunk j, the last chunk
+    zero-padded), and go through the one ``sosfilt`` together. x: [N, C];
+    returns y [N, C]."""
+    n, C = x.shape
+    nc = -(-n // chunk_len)
+    cols = torch.nn.functional.pad(x, (0, 0, 0, nc * chunk_len - n)).reshape(
+        nc, chunk_len, C).permute(1, 0, 2).reshape(chunk_len, nc * C)
+    y, _ = sosfilt(sos, cols.contiguous())
+    return y.reshape(chunk_len, nc, C).permute(1, 0, 2).reshape(
+        nc * chunk_len, C)[:n]

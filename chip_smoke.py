@@ -19,23 +19,54 @@ failure raises and the script exits non-zero without the final line:
      on [2^23 + 1234, 2] noise from a non-zero zi, kernel against the
      plain tile-conv version on the card (max abs error <= 1e-4 for y and
      zf); kernel and plain times, the kernel's share of its bound, and its
-     time split over its launches (torch.profiler);
+     time split over its launches (torch.profiler); then K5 on chunk
+     columns: the six cascades the chunked compat path runs per chunk, on
+     [1 323 000, 14] (the 2^23 track's 7 chunks of 30 s as columns, channel
+     groups 4 + 4 + 4 + 2) from a non-zero zi, within 1e-4, timed; then K5
+     on the quality multiband paths' cascades, each distinct one: the
+     3-band split's bands and the pieces of at most 8 sections of the
+     16-band tree's bands on [2^23 + 1234, 2], the k=1 attack smoother on
+     [2^23 + 1234, 3] and [2^23 + 1234, 16], from a non-zero zi, within
+     1e-4, timed with their bounds;
   4. main path: master_file on a 2^23-sample 44.1 kHz stereo WAV with the
      flagship settings; checks the written master (length, finite, ceiling,
      loudness within 0.5 LU of -14) and that the main path made exactly 3
      kernel launches; device-chain and file-to-file times as x realtime;
   5. card vs CPU: master_graph on the first 2^20 samples on both devices
      (max abs difference <= 2e-4, gain difference <= 0.01 dB);
-  6. the wedge envelope (K1) vs its plain 12-scan form on the card, both
+  6. quality multiband: master_file with the flagship settings and
+     multiband=True (K5 3 + 4 launches and nothing else, -14 LUFS within
+     0.5 LU, times), master_graph with 16 bands (mb_edges, 15 edges from
+     60 Hz to 16 kHz: the K5 launches once every band's cascade of up to
+     30 sections is cut into pieces of at most 8, a finite output, its
+     device chain); both card vs CPU on 2^20 samples (2e-4, 0.01 dB);
+  7. the wedge envelope (K1) vs its plain 12-scan form on the card, both
      directions, on the compat depths of [2^23 + 1234, 2] noise at 0.5
      (envelope within 1e-5, limited output within 1/32768); its time and
      its split over its three launches (torch.profiler);
-  7. gain kernels (K2 Jacobi sweep, K3 pass 1, K4 pass 2) vs the plain
+  8. compat main path: master_file (mode="compat", multiband) on a 2^23
+     gated noise + 100 Hz WAV that takes every band over its threshold;
+     K1 must launch twice, K5 seven times, K2 at least once and K3 / K4
+     never (the relaxation converges); the master's peak (<= 1.0,
+     auto-level) and loudness (within 1.0 LU of the auto-levelled -14);
+     stage times; then the same with compat_chunked=True (quirk Q6, 7
+     chunks of 30 s): K1 twice, K5 seven times (six at C = 14), K2 only
+     through its reset route, K3 / K4 never, the same master checks and
+     times; then chunked on steady 0.5 noise: K3 with the chunk flags and
+     K4 must launch, times;
+  9. gain kernels (K2 Jacobi sweep, K3 pass 1, K4 pass 2) vs the plain
      sequential walk on the card, bit for bit: (a) K2 on 2^17 bursts and
      freeze runs,
      (b) K3+K4 on translation-only content, where K2 must report no
      convergence, (d) K3 with reset flags at groups 40, 200, 1000 and
-     3000 against its plain version at [3, 2^17], (c) K2 against K3+K4 on
+     3000 against its plain version at [3, 2^17], (e) K2's reset route
+     against gain_jacobi_plain with the flags at [3, 2^17], chunks of 1500
+     (one boundary inside a silent run after a non-zero state), 16
+     segments of 258.5 groups, from three sets of carries, (f) on the
+     chunked path's band max-attenuations at 2^23: the reset-route Jacobi
+     engine against K3 (flags) + K4, the reset route against its plain
+     version, its carry and full sweeps timed (beside the unchunked route
+     on the same input), (c) K2 against K3+K4 on
      the compat main path's band
      max-attenuations at 2^23, and on those inputs each kernel against its
      plain version: K2's full sweep from the relaxed carries, K4, and K3's
@@ -46,26 +77,29 @@ failure raises and the script exits non-zero without the final line:
      sampled while it runs; K4 also on random m and starts at
      [3, 2^23 + 1234] (rows not 16-byte aligned, a ragged last group: its
      4-byte copy route) and [3, 2^17 + 7], bit for bit, and timed beside a
-     device copy of m (the practical ceiling for its bytes);
-  8. compat main path: master_file (mode="compat", multiband) on a 2^23
-     gated noise + 100 Hz WAV that takes every band over its threshold;
-     K1 must launch twice, K5 seven times, K2 at least once and K3 / K4
-     never (the relaxation converges); the master's peak (<= 1.0,
-     auto-level) and loudness (within 1.0 LU of the auto-levelled -14);
-     stage times; then the fallback path: master_file on steady 0.5 noise,
-     whose low band does not converge, so K3 and K4 must launch, and its
-     device chain timed with its busy time;
-  9. compat card vs CPU on the first 2^20 samples: relative L2 < 3e-3 or
-     max abs <= 2/32768, loudnorm gain_db / output_i within 0.01 dB;
- 10. a {"kernels": [...]} line, then the last line
+     device copy of m (the practical ceiling for its bytes); then the
+     unchunked fallback path: master_file on steady 0.5 noise, whose low
+     band does not converge, so K3 and K4 must launch, and its device
+     chain timed with its busy time;
+ 10. compat card vs CPU on the first 2^20 samples, chunked compat on the
+     first 2^21 (a chunk boundary inside): relative L2 < 3e-3 or max abs
+     <= 2/32768, loudnorm gain_db / output_i within 0.01 dB;
+ 11. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+     then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Run alone, without the repository's ame_tpu_torch package beside it, the
+script stops after phase 1 with a non-zero exit and prints no result.
 
 ``python3 chip_smoke.py --kernel-times [ROOT]`` runs phase 3, K1's check
 and times, K2's sweep times, K3's check, time and floor and K4's checks
 and times (with the copy yardstick) at [3, 2^23], K4 at [3, 2^23 + 1234],
-and the three device chains (quality, compat, compat fallback) only, with the
-ame_tpu_torch package under ROOT (default: this checkout; e.g. an unpacked
-parent commit), so that two trees can be timed in turns on one card.
+K2's reset route (f) and the device chains (quality, compat, compat
+fallback, compat chunked and its fallback, quality multiband 3 and 16
+bands) only, with the ame_tpu_torch package under ROOT (default: this
+checkout; e.g. an unpacked parent commit, which may lack chunked compat
+and multiband: those parts are then left out), so that two trees can be
+timed in turns on one card.
 
 Every kernel's launch count is set to 0 just before each main path and read
 just after it. Times are medians of 3 warm runs, taken with
@@ -110,6 +144,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS = 67e12              # H100 SXM, f32 outside the tensor cores
 ATTACK, RELEASE = 220.5, 2205.0   # the compressor's 5 / 50 ms at 44.1 kHz
 RESET_GROUPS = (40, 200, 1000, 3000)   # flagged 32-sample groups, K3 (d)
+CHUNK_LEN = int(30.0 * SR)     # COMPAT_CHUNK_SECONDS at 44.1 kHz: 1 323 000
+RESET_CHUNK = 1500             # K2's reset route on [3, 2^17], (e)
+N_CHUNK_PARITY = 1 << 21       # holds the first chunk boundary
+COMPAT_CHUNKED = dict(COMPAT, compat_chunked=True)
+QUALITY_MB = dict(FLAGSHIP, multiband=True)
+EDGES_16 = tuple(float(e) for e in np.geomspace(60.0, 16000.0, 15).round(1))
+QUALITY_MB16 = dict(FLAGSHIP, mb_edges=EDGES_16)
 
 
 def _cuda_ms(fn, calls: int = 1) -> float:
@@ -173,15 +214,27 @@ def _counters():
             "cascade_scan": sosfilt_cuda}
 
 
+def _reset_counters() -> dict:
+    """The launches of K2's reset route and of K3 with flags (within
+    gain_jacobi's and gain_p1's counts), where the package counts them."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    return {k: fn for k, fn in (("gain_jacobi_resets", pg.gain_jacobi_cuda),
+                                ("gain_p1_resets", pg.gain_p1_cuda))
+            if hasattr(fn, "reset_launches")}
+
+
 def _zero_counts() -> None:
     torch.cuda.synchronize()
     for fn in _counters().values():
         fn.launches = 0
+    for fn in _reset_counters().values():
+        fn.reset_launches = 0
 
 
 def _read_counts() -> dict:
     torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in _counters().items()}
+    return {**{k: fn.launches for k, fn in _counters().items()},
+            **{k: fn.reset_launches for k, fn in _reset_counters().items()}}
 
 
 def phase_device() -> str:
@@ -437,6 +490,105 @@ def phase_cascades() -> list:
     return rows
 
 
+def phase_cascades_chunked() -> list:
+    """K5 on chunk columns: the six cascades that the chunked compat path
+    runs per chunk (all compat cascades but the K-weighting), on
+    [CHUNK_LEN, 2 * n_chunks] = [1 323 000, 14] noise (the 2^23 track's 7
+    chunks as columns: channel groups 4 + 4 + 4 + 2) from a non-zero zi,
+    kernel vs plain (y and zf within 1e-4), kernel and plain times."""
+    cols = 2 * -(-N_MAIN // CHUNK_LEN)
+    x, pre = _noise_input(CHUNK_LEN, cols, 2)
+    return [_cascade_row(name, sos, x, pre)
+            for name, sos in list(_compat_cascades().items())[:6]]
+
+
+def _noise_input(n: int, cols: int, seed: int):
+    """[n, cols] 0.3 N(0,1) noise on the card, and a [4096, cols] pre-roll
+    of the same noise for start states."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((0.3 * rng.standard_normal((n, cols)))
+                         .astype(np.float32)).cuda()
+    pre = torch.from_numpy((0.3 * rng.standard_normal((4096, cols)))
+                           .astype(np.float32)).cuda()
+    return x, pre
+
+
+def _cascade_row(name: str, sos, x: torch.Tensor, pre: torch.Tensor,
+                 **extra) -> dict:
+    """K5 on x [N, C] against its plain tile-conv version from a non-zero
+    zi (the plain filter's end state after the pre-roll), y and zf within
+    KERNEL_TOL; then the kernel's time (10 calls in a row), the plain
+    version's and the bound."""
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
+    sos = np.ascontiguousarray(np.asarray(sos, np.float64))
+    N, C = x.shape
+    _, zi = sosfilt_tileconv(sos, pre)
+    zi = zi.contiguous()
+    y_k, zf_k = sosfilt_cuda(sos, x, zi)
+    y_p, zf_p = sosfilt_tileconv(sos, x, zi)
+    torch.cuda.synchronize()
+    err = max((y_k - y_p).abs().max().item(),
+              (zf_k - zf_p).abs().max().item())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{name} at [{N}, {C}]: kernel vs plain "
+                             f"{err:.3e} > {KERNEL_TOL}")
+    del y_k, y_p
+    ms = _cuda_ms(lambda: sosfilt_cuda(sos, x, zi), KERNEL_CALLS)
+    plain_ms = _cuda_ms(lambda: sosfilt_tileconv(sos, x, zi))
+    k = int(sos.shape[0])
+    bound = _cascade_bound(k, N, C)
+    print(f"kernel {name} k={k} [{N}, {C}]: err {err:.3e}; kernel "
+          f"{ms:.4f} ms ({bound[0] / ms:.1%} of its bound {bound[0]:.4f} "
+          f"ms), plain {plain_ms:.4f} ms")
+    return {"cascade": name, "k": k, "shape": [N, C], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_share": bound[0] / ms, **extra}
+
+
+def _mb_cascades() -> dict:
+    """The K5 inputs of the quality multiband paths, each distinct one
+    once: {name: (sos, C, {path: runs per master})}. The three band
+    cascades of the 3-band split and the pieces of at most 8 sections that
+    sosfilt cuts the 16-band tree's band cascades into (a piece shared by
+    several bands, as the low edges' highpasses are, once), at C = 2; the
+    k=1 attack smoother on the bands as columns, C = 3 and 16."""
+    from ame_tpu_torch import config as C
+    from ame_tpu_torch.graph import multiband as mb
+    from ame_tpu_torch.ops.cascade_scan import _MAX_SECTIONS
+    from ame_tpu_torch.ops.compressor import attack_sos
+    out, seen = {}, {}
+    for path, cascades in (("quality_mb", mb._band_cascades_3(SR)),
+                           ("quality_mb16", mb._band_cascades_n(SR,
+                                                                EDGES_16))):
+        for b, sos in enumerate(cascades):
+            sos = np.asarray(sos, np.float64)
+            for i in range(0, sos.shape[0], _MAX_SECTIONS):
+                piece = np.ascontiguousarray(sos[i:i + _MAX_SECTIONS])
+                name = seen.setdefault(
+                    piece.tobytes(),
+                    f"{path}_band{b}" + (f"_sections{i}-{i + len(piece) - 1}"
+                                         if len(sos) > _MAX_SECTIONS else ""))
+                entry = out.setdefault(name, (piece, 2, {}))
+                entry[2][path] = entry[2].get(path, 0) + 1
+    smoother = attack_sos(SR, C.MB_ATTACK_MS)
+    for path, G in (("quality_mb", 3), ("quality_mb16", len(EDGES_16) + 1)):
+        out[f"attack_smoother_C{G}"] = (smoother, G, {path: 1})
+    return out
+
+
+def phase_cascades_mb() -> list:
+    """K5 on the quality multiband paths' cascades (_mb_cascades): each
+    distinct one on [2^23 + 1234, C] noise from a non-zero zi, kernel vs
+    plain (y and zf within 1e-4), kernel and plain times, its bound."""
+    rows, inputs = [], {}
+    for name, (sos, C, uses) in _mb_cascades().items():
+        if C not in inputs:
+            inputs[C] = _noise_input(N_KERNEL, C, 3)
+        rows.append(_cascade_row(name, sos, *inputs[C], uses=uses))
+    return rows
+
+
 def phase_main(tmp: str) -> dict:
     from ame_tpu_torch.api import master_file
     from ame_tpu_torch.config import MasterSettings
@@ -626,7 +778,7 @@ def _band_max_att(x: torch.Tensor) -> torch.Tensor:
                              p["ratios"].tolist())]).contiguous()
 
 
-def phase_gain(m_main: torch.Tensor) -> dict:
+def phase_gain(m_main: torch.Tensor, m_chunked: torch.Tensor) -> dict:
     from ame_tpu_torch.ops import pydub_gain as pg
 
     ia, ir = pg._scal(ATTACK, RELEASE)
@@ -684,6 +836,9 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     print(f"gain (d) gain_p1 with resets at groups {list(RESET_GROUPS)} == "
           f"gain_p1_plain bit for bit [3, {N_GAIN_PLAIN}]")
 
+    # (e), (f) K2's reset route
+    reset = {"small": _reset_small(), **_reset_main(m_chunked)}
+
     # (c) the compat main path's bands at 2^23: two algorithms, one answer
     G, n = m_main.shape
     att_c, ok_c, sweeps_c = pg._jacobi(m_main, z3, ia, ir)
@@ -697,7 +852,7 @@ def phase_gain(m_main: torch.Tensor) -> dict:
 
     # each kernel against its plain version on the main path's inputs at
     # 2^23: the full Jacobi sweep from the relaxed carries, pass 1, pass 2
-    m_t, S, c_first, c_fix = _jacobi_inputs(m_main)
+    m_t, S, c_first, c_fix, _ = _jacobi_inputs(m_main)
     seg_len = m_t.shape[0]
     c = c_fix.reshape(-1).contiguous()
     # the carry sweep (no att written) from the first sweep's carries
@@ -759,7 +914,7 @@ def phase_gain(m_main: torch.Tensor) -> dict:
     errs = {"gain_jacobi": max(err_a, err_c), "gain_p1": max(err_b, err_c),
             "gain_p2": max(err_b, err_c)}
     return {"ms": ms, "plain_ms": plain_ms, "plain_n": plain_n, "n": n,
-            "errs": errs,
+            "errs": errs, "reset": reset,
             "bounds": bounds, "engine_ms": engine_ms, "sweeps": sweeps_c,
             "walk_ms": walk_ms, "carry": carry, "p1": k3, "p2": k4}
 
@@ -874,9 +1029,11 @@ def _p2_kernel(m: torch.Tensor, starts: torch.Tensor) -> dict:
     return out
 
 
-def _jacobi_inputs(m_main: torch.Tensor):
-    """K2's inputs on the compat main path: the time-major m_t, S, the
-    first sweep's carries (init, then zeros) and the relaxed carries."""
+def _jacobi_inputs(m_main: torch.Tensor, resets=None):
+    """K2's inputs for chains m_main [G, N] (and group flags resets
+    [ceil(N/32)], or None): the time-major m_t, S, the first sweep's
+    carries (init, then zeros), the relaxed carries and the flags padded
+    to the engine's length (or None)."""
     from ame_tpu_torch.ops import pydub_gain as pg
     G, n = m_main.shape
     ia, ir = pg._scal(ATTACK, RELEASE)
@@ -886,32 +1043,153 @@ def _jacobi_inputs(m_main: torch.Tensor):
     m_t = torch.nn.functional.pad(m_main, (0, npad - n)).reshape(
         G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
     z3 = torch.zeros(G, device=m_main.device)
-    c_fix, _, _ = pg._jacobi_carries(m_t, G, S, z3, ia, ir)
-    return m_t, S, torch.zeros(G * S, device=m_main.device), c_fix
+    if resets is None:
+        c_fix, _, _ = pg._jacobi_carries(m_t, G, S, z3, ia, ir)
+    else:
+        resets = torch.nn.functional.pad(resets, (0, npad // pg._K
+                                                  - resets.shape[0]))
+        c_fix, _, _ = pg._jacobi_carries(m_t, G, S, z3, ia, ir, resets)
+    return (m_t, S, torch.zeros(G * S, device=m_main.device), c_fix,
+            resets)
 
 
 def _jacobi_times(m_t: torch.Tensor, c_first: torch.Tensor,
-                  c_fix: torch.Tensor) -> dict:
+                  c_fix: torch.Tensor, resets=None) -> dict:
     """K2's carry sweep (from the first sweep's carries) and full sweep
-    (from the relaxed carries), kernel ms and bound at m_t's shape."""
+    (from the relaxed carries), kernel ms and bound at m_t's shape; with
+    group flags, those of its reset route (the flags' bytes in the
+    bound)."""
     from ame_tpu_torch.ops import pydub_gain as pg
     ia, ir = pg._scal(ATTACK, RELEASE)
     c_fix = c_fix.reshape(-1).contiguous()
     seg_len, lanes = m_t.shape
     flops = 5 * seg_len * lanes
+    kw = {} if resets is None else {"resets": resets}
+    flag_bytes = 0 if resets is None else resets.shape[0] * 4
+    route = "" if resets is None else " (reset route)"
     out = {}
     for sweep, full, c in (("carry", False, c_first), ("full", True, c_fix)):
         def sweep_fn():
-            return pg.gain_jacobi_cuda(m_t, c, ia, ir, full)
+            return pg.gain_jacobi_cuda(m_t, c, ia, ir, full, **kw)
         ms = _cuda_ms(sweep_fn, KERNEL_CALLS)
         one_ms = _cuda_ms(sweep_fn)
-        bound = _bound((2 if full else 1) * seg_len * lanes * 4, flops)
+        bound = _bound((2 if full else 1) * seg_len * lanes * 4 + flag_bytes,
+                       flops)
         out[sweep] = {"ms": ms, "one_call_ms": one_ms, "bound_ms": bound[0],
                       "bound_by": bound[1], "bound_share": bound[0] / ms}
-        print(f"gain_jacobi {sweep} sweep: kernel {ms:.4f} ms (one call "
-              f"alone {one_ms:.4f} ms) [{seg_len}, {lanes}] (bound "
+        print(f"gain_jacobi{route} {sweep} sweep: kernel {ms:.4f} ms (one "
+              f"call alone {one_ms:.4f} ms) [{seg_len}, {lanes}] (bound "
               f"{bound[0]:.4f} ms, {bound[0] / ms:.1%})")
     return out
+
+
+def _jacobi_check(m_t, carries: dict, resets, label: str) -> float:
+    """K2 (with the group flags: its reset route) against gain_jacobi_plain
+    from each of `carries` ({name: [lanes] carry-ins}), the carry sweep and
+    the full sweep, bit for bit. Returns the max abs difference (0.0)."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    err = 0.0
+    for cname, c in carries.items():
+        c = c.reshape(-1).contiguous()
+        for full in (False, True):
+            co_k, att_k = pg.gain_jacobi_cuda(m_t, c, ia, ir, full, resets)
+            co_p, att_p = pg.gain_jacobi_plain(m_t, c, ia, ir, full, resets)
+            same = torch.equal(co_k, co_p) and (
+                not full or torch.equal(att_k, att_p))
+            if not same:
+                raise AssertionError(
+                    f"{label}: gain_jacobi reset route ({cname} carries, "
+                    f"{'full' if full else 'carry'} sweep) vs plain: max diff "
+                    f"{(co_k - co_p).abs().max().item()}")
+            err = max(err, (co_k - co_p).abs().max().item(),
+                      (att_k - att_p).abs().max().item() if full else 0.0)
+            del att_k, att_p
+    return err
+
+
+def _reset_small() -> dict:
+    """(e) K2's reset route on [3, 2^17] with chunk boundaries every
+    RESET_CHUNK samples, bit for bit against gain_jacobi_plain with the
+    flags: a silent run (m == 0, samples 40 000..60 000) follows a non-zero
+    state and holds boundaries. The chain is cut into S = 16 segments of
+    8272 samples (258.5 groups), so half the lanes' group starts sit at
+    row 16 of a group, as at 2^23 (S = 2048, 4528 samples a segment).
+    Carry-ins: the first sweep's, random ones and the relaxed ones."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    rng = np.random.default_rng(11)
+    m = np.zeros((3, N_GAIN_PLAIN), np.float32)
+    for g in range(3):
+        m[g, 1000:40000] = (g + 1) * np.abs(rng.standard_normal(39000))
+        m[g, 60000:120000] = (g + 2) * np.abs(rng.standard_normal(60000))
+    m1, flags = pg._chunk_layout(torch.from_numpy(m).cuda(), RESET_CHUNK)
+    G, npad = m1.shape
+    S = 16
+    seg_len = npad // S
+    if seg_len % pg._K == 0 or S * seg_len != npad:
+        raise AssertionError(f"(e) layout {npad} / {S}: want ragged groups")
+    m_t = m1.reshape(G, S, seg_len).permute(2, 0, 1).reshape(
+        seg_len, G * S).contiguous()
+    z = torch.zeros(G, device="cuda")
+    c_fix, ok, sweeps = pg._jacobi_carries(m_t, G, S, z, ia, ir, flags)
+    if not ok.all().item():
+        raise AssertionError(f"(e) relaxation did not converge: {ok}")
+    carries = {"first": torch.cat([z[:, None], z.new_zeros(G, S - 1)], 1),
+               "random": torch.from_numpy((8.0 * rng.random((G, S))).astype(
+                   np.float32)).cuda(),
+               "relaxed": c_fix}
+    err = _jacobi_check(m_t, carries, flags, f"(e) [{G}, {N_GAIN_PLAIN}]")
+    # the state just before the silent run's first boundary is non-zero,
+    # and the boundary zeroes it
+    _, att_t = pg.gain_jacobi_cuda(m_t, c_fix.reshape(-1).contiguous(), ia,
+                                   ir, True, flags)
+    att = att_t.reshape(seg_len, G, S).permute(1, 2, 0).reshape(G, npad)
+    b = -(-40000 // RESET_CHUNK)              # first chunk start >= 40 000
+    t0 = b * (-(-RESET_CHUNK // pg._K) * pg._K)   # where it lies in m1
+    if not ((att[:, t0 - 1] > 0).all() and (att[:, t0] == 0).all()):
+        raise AssertionError("(e) the boundary in the silent run did not "
+                             "zero a non-zero state")
+    print(f"gain (e) gain_jacobi reset route == gain_jacobi_plain bit for "
+          f"bit [{G}, {N_GAIN_PLAIN}], chunks of {RESET_CHUNK}, S = {S} x "
+          f"{seg_len} samples, carry and full sweeps from first / random / "
+          f"relaxed carries ({sweeps} sweeps)")
+    return {"sweeps": sweeps, "max_abs_err": err}
+
+
+def _reset_main(m_chunked: torch.Tensor) -> dict:
+    """(f) the chunked compat path's band max-attenuations at 2^23 in the
+    engine's chunk layout: the Jacobi engine with K2's reset route against
+    K3 (with the flags) + K4, bit for bit; the reset route against its
+    plain version from the first and the relaxed carries; its carry and
+    full sweeps timed apart (and the unchunked route on the same m_t)."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    m1, flags = pg._chunk_layout(m_chunked, CHUNK_LEN)
+    G, n = m1.shape
+    z = torch.zeros(G, device="cuda")
+    att_j, ok, sweeps = pg._jacobi(m1, z, ia, ir, flags)
+    tp = pg._two_pass(m1, z, ia, ir, flags)
+    if not all(ok) or not torch.equal(att_j, tp):
+        raise AssertionError(f"(f) converged {ok}; reset-route Jacobi vs "
+                             f"K3 + K4 max diff "
+                             f"{(att_j - tp).abs().max().item()}")
+    del att_j, tp
+    m_t, S, c_first, c_fix, fl = _jacobi_inputs(m1, flags)
+    err = _jacobi_check(m_t, {"first": c_first, "relaxed": c_fix}, fl,
+                        f"(f) [{G}, {n}]")
+    seg_len = m_t.shape[0]
+    c = c_fix.reshape(-1).contiguous()
+    plain_ms = _cuda_ms(lambda: pg.gain_jacobi_plain(m_t, c, ia, ir, True,
+                                                     fl))
+    print(f"gain (f) chunked main-path bands [{G}, {n}] (7 chunks padded "
+          f"to groups): reset-route Jacobi converged in {sweeps} sweeps, == "
+          f"K3 (flags) + K4 bit for bit; the reset route == its plain "
+          f"version [{seg_len}, {G * S}], S = {S}")
+    return {"sweeps": sweeps, "shape": [seg_len, G * S],
+            "plain_ms": plain_ms, "max_abs_err": err,
+            "reset": _jacobi_times(m_t, c_first, c_fix, fl),
+            "no_resets": _jacobi_times(m_t, c_first, c_fix)}
 
 
 def _compat_x(tmp: str):
@@ -1042,14 +1320,252 @@ def phase_compat_fallback(tmp: str) -> dict:
             "file_s": file_s}
 
 
-def phase_compat_parity(pcm: np.ndarray) -> dict:
+def _time_path(name: str, src: str, dst: str, x: torch.Tensor,
+               settings) -> dict:
+    """A path's device chain (master_graph on x, CUDA events), its busy
+    time under torch.profiler, file to file (master_file) and stage
+    times."""
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.graph.chain import master_graph
+    chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
+    busy = _chain_busy(name, lambda: master_graph(x, SR, settings), chain_ms)
+    file_s = _host_s(lambda: master_file(src, dst, settings, device="cuda"))
+    stages: dict = {}
+    master_graph(x, SR, settings, timer=stages)
+    duration = x.shape[0] / SR
+    print(f"{name} device chain {chain_ms:.3f} ms = "
+          f"{duration / (chain_ms / 1e3):.1f}x realtime; file to file "
+          f"{file_s * 1e3:.1f} ms = {duration / file_s:.1f}x realtime; "
+          f"stages (ms): " + ", ".join(f"{k} {v * 1e3:.3f}"
+                                       for k, v in stages.items()))
+    return {"chain_ms": chain_ms, "busy": busy, "file_s": file_s,
+            "stages": stages}
+
+
+def _band_max_att_chunked(x: torch.Tensor) -> torch.Tensor:
+    """[3, N] max-attenuations of the chunked compat chain's bands, as its
+    multiband stage computes them (filters and detector windows restarted
+    every CHUNK_LEN samples)."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    from ame_tpu_torch.graph.multiband import _crossover_compat
+    from ame_tpu_torch.ops import compressor, quantize
+    p = chain.params_from_settings(MasterSettings(**COMPAT_CHUNKED),
+                                   x.device)
+    y = chain._stage_analog_compat(x, p["analog"], SR, CHUNK_LEN)
+    y = chain._stage_eq_width_compat(y, p["bass"], p["mid_cut"],
+                                     p["presence"], p["treble"], SR, True,
+                                     p["width"], CHUNK_LEN)
+    bands = _crossover_compat(y, SR, CHUNK_LEN)
+    return torch.stack([
+        compressor._max_att_chunked(quantize.float_to_int16(b), SR, th, ra,
+                                    CHUNK_LEN, 5.0)
+        for b, th, ra in zip(bands, p["threshs"].tolist(),
+                             p["ratios"].tolist())]).contiguous()
+
+
+def phase_compat_chunked(tmp: str) -> dict:
+    """The chunked compat path (compat_chunked=True, quirk Q6: the 2^23
+    track is 7 chunks of 30 s): master_file on the gated input. K1 twice;
+    K5 7 times, 6 of them on the 7 chunks as 14 columns (the K-weighting
+    runs continuous); K2 through its reset route only; K3 / K4 never (the
+    relaxation converges). The master as the compat one: peak, loudness;
+    then its times."""
+    from unittest import mock
+
+    from ame_tpu_torch import config
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.io.wav import read_wav
+    from ame_tpu_torch.ops import scan_iir
+    from ame_tpu_torch.ops.loudness import integrated_lufs
+
+    if int(config.COMPAT_CHUNK_SECONDS * SR) != CHUNK_LEN:
+        raise AssertionError("the package's chunk is not CHUNK_LEN")
+    src, pcm, x = _compat_x(tmp)
+    dst = os.path.join(tmp, "chunked_out.wav")
+    settings = MasterSettings(**COMPAT_CHUNKED)
+    cols = 2 * -(-N_MAIN // CHUNK_LEN)
+    _zero_counts()
+    # sosfilt_chunked calls sosfilt through scan_iir's module name; every
+    # other stage holds its own reference, so the spy sees the chunked
+    # cascades only (one K5 launch each, k <= 4)
+    with mock.patch.object(scan_iir, "sosfilt",
+                           wraps=scan_iir.sosfilt) as spy:
+        info = master_file(src, dst, settings, device="cuda")
+    counts = _read_counts()
+    widths = [int(c.args[1].shape[1]) for c in spy.call_args_list]
+    del spy
+    wide = widths.count(cols)
+    print(f"compat_chunked path launches: {json.dumps(counts)}; K5 at C = "
+          f"{cols}: {wide} (chunked cascades' widths {widths})")
+    if (counts["wedge_env"] != 2 or counts["cascade_scan"] != 7
+            or widths != [cols] * 6 or counts["gain_jacobi"] < 1
+            or counts["gain_jacobi_resets"] != counts["gain_jacobi"]
+            or counts["gain_p1"] != 0 or counts["gain_p2"] != 0):
+        raise AssertionError(f"compat_chunked launches {counts}, {wide} at "
+                             f"C = {cols}: expected 2 wedge_env, 7 "
+                             f"cascade_scan (6 at C = {cols}), gain_jacobi "
+                             f"through its reset route only, no gain_p1 / "
+                             f"gain_p2")
+    out, sr = read_wav(dst)
+    if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
+        raise AssertionError(f"bad chunked master: shape {out.shape}")
+    y, _ = master_graph(x, SR, settings)
+    peak = y.abs().max().item()
+    out_i = integrated_lufs(torch.from_numpy(out).cuda(), SR).item()
+    print(f"compat_chunked master: peak {peak:.6f}, measures {out_i:.4f} "
+          f"LUFS (target {COMPAT_TARGET:.4f}); linear_mode "
+          f"{info['linear_mode']:.0f}, gain {info['gain_db']:.4f} dB")
+    if not (peak <= 1.0 + 1e-5 and torch.isfinite(y).all().item()):
+        raise AssertionError(f"chunked master peaks at {peak} > 1.0 + 1e-5")
+    if abs(out_i - COMPAT_TARGET) > COMPAT_LUFS_TOL:
+        raise AssertionError(f"chunked master measures {out_i:.4f} LUFS, "
+                             f"target {COMPAT_TARGET:.4f}")
+    del y
+    times = _time_path("compat_chunked", src, dst, x, settings)
+    return {"counts": counts, "widths": widths, "pcm": pcm,
+            "m_chunked": _band_max_att_chunked(x), "out_i": out_i,
+            "peak": peak, **times}
+
+
+def phase_compat_chunked_fallback(tmp: str) -> dict:
+    """The chunked compat path on the steady 0.5 noise: a band's carries
+    stall within its chunks, and the engine takes K3 (with the chunk
+    flags) + K4 for it; then its times."""
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.io.wav import read_wav
+
+    src, x = _steady_x(tmp)
+    dst = os.path.join(tmp, "chunked_steady_out.wav")
+    settings = MasterSettings(**COMPAT_CHUNKED)
+    _zero_counts()
+    master_file(src, dst, settings, device="cuda")
+    counts = _read_counts()
+    print("compat_chunked_fallback path launches: " + json.dumps(counts))
+    if (counts["gain_p1"] < 1 or counts["gain_p1_resets"] != counts["gain_p1"]
+            or counts["gain_p2"] < 1 or counts["wedge_env"] != 2
+            or counts["gain_jacobi"] < 1
+            or counts["gain_jacobi_resets"] != counts["gain_jacobi"]):
+        raise AssertionError(f"compat_chunked_fallback launches {counts}: "
+                             f"expected K3 with flags and K4")
+    out, sr = read_wav(dst)
+    if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
+        raise AssertionError(f"bad chunked fallback master: {out.shape}")
+    return {"counts": counts,
+            **_time_path("compat_chunked_fallback", src, dst, x, settings)}
+
+
+def _mb_launches(edges) -> int:
+    """K5 launches of the quality multiband stage: one a piece of at most
+    8 sections of each band's cascade (3 bands: 2, 4, 4 sections), and the
+    attack smoother."""
+    from ame_tpu_torch.graph import multiband as mb
+    from ame_tpu_torch.ops.cascade_scan import _MAX_SECTIONS
+    ks = [c.shape[0] for c in (mb._band_cascades_3(SR) if edges is None
+                               else mb._band_cascades_n(SR, tuple(edges)))]
+    return sum(-(-k // _MAX_SECTIONS) for k in ks) + 1
+
+
+def phase_quality_mb(tmp: str) -> dict:
+    """Quality multiband paths. master_file with the flagship settings and
+    multiband=True on the quality main path's WAV: 3 + 4 K5 launches and
+    nothing else, the master at -14 LUFS within 0.5 LU, its times. Then
+    master_graph with 16 bands (mb_edges: 15 edges from 60 Hz to 16 kHz):
+    its K5 launches once the bands' cascades (up to 30 sections) are cut
+    into pieces of at most 8, a finite output, its device chain."""
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.io.wav import read_wav
+    from ame_tpu_torch.ops.loudness import measure
+
+    src = os.path.join(tmp, "in.wav")          # phase_main's input
+    dst = os.path.join(tmp, "mb_out.wav")
+    pcm, _ = read_wav(src, prefer_int16=True)
+    x = torch.from_numpy(pcm).cuda().to(torch.float32) * (1.0 / 32768.0)
+    settings = MasterSettings(**QUALITY_MB)
+    _zero_counts()
+    info = master_file(src, dst, settings, device="cuda")
+    counts = _read_counts()
+    want = 3 + _mb_launches(None)
+    print(f"quality_mb path launches: {json.dumps(counts)} (K5 expected "
+          f"{want})")
+    if counts["cascade_scan"] != want or any(
+            v for k, v in counts.items() if k != "cascade_scan"):
+        raise AssertionError(f"quality_mb launches {counts}")
+    out, sr = read_wav(dst)
+    if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
+        raise AssertionError(f"bad quality_mb master: {out.shape}")
+    out_i = measure(torch.from_numpy(out).cuda(), SR)["input_i"].item()
+    print(f"quality_mb master measures {out_i:.4f} LUFS (gain "
+          f"{info['gain_db']:.4f} dB)")
+    if abs(out_i + 14.0) > LUFS_TOL:
+        raise AssertionError(f"quality_mb master measures {out_i} LUFS")
+    mb3 = {"counts": counts, "out_i": out_i,
+           **_time_path("quality_mb", src, dst, x, settings)}
+
+    s16 = MasterSettings(**QUALITY_MB16)
+    _zero_counts()
+    y, _ = master_graph(x, SR, s16)
+    counts16 = _read_counts()
+    want16 = 3 + _mb_launches(EDGES_16)
+    print(f"quality_mb16 path launches: {json.dumps(counts16)} (K5 expected "
+          f"{want16})")
+    if counts16["cascade_scan"] != want16 or not torch.isfinite(y).all():
+        raise AssertionError(f"quality_mb16: launches {counts16}, finite "
+                             f"{torch.isfinite(y).all().item()}")
+    del y
+    chain_ms = _cuda_ms(lambda: master_graph(x, SR, s16))
+    busy = _chain_busy("quality_mb16", lambda: master_graph(x, SR, s16),
+                       chain_ms)
+    print(f"quality_mb16 device chain {chain_ms:.3f} ms = "
+          f"{N_MAIN / SR / (chain_ms / 1e3):.1f}x realtime")
+    return {"mb3": mb3, "mb16": {"counts": counts16, "chain_ms": chain_ms,
+                                 "busy": busy}}
+
+
+def phase_quality_mb_parity() -> dict:
+    """Card vs CPU on the first 2^20 samples of the quality input, 3-band
+    and 16-band multiband: max |y| diff <= 2e-4, gain within 0.01 dB."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+
+    rng = np.random.default_rng(0)
+    x = np.trunc(np.clip(0.1 * rng.standard_normal((N_MAIN, 2)), -1, 1)
+                 * 32767.0)[:N_PARITY].astype(np.float32) / 32768.0
+    out = {}
+    for name, s in (("quality_mb", QUALITY_MB), ("quality_mb16",
+                                                 QUALITY_MB16)):
+        settings = MasterSettings(**s)
+        y_c, i_c = master_graph(torch.from_numpy(x).cuda(), SR, settings)
+        y_h, i_h = master_graph(torch.from_numpy(x), SR, settings)
+        diff = (y_c.cpu() - y_h).abs().max().item()
+        gain = abs(i_c["gain_db"].item() - i_h["gain_db"].item())
+        print(f"{name} card vs CPU [{N_PARITY}, 2]: max |y| diff "
+              f"{diff:.3e}, gain diff {gain:.3e} dB")
+        if not (diff <= PARITY_TOL and gain <= GAIN_TOL_DB):
+            raise AssertionError(f"{name} card vs CPU: {diff} > "
+                                 f"{PARITY_TOL} or {gain} dB")
+        out[name] = {"max_abs_diff": diff, "gain_diff_db": gain}
+    return out
+
+
+def phase_compat_parity(pcm: np.ndarray, settings_dict=COMPAT,
+                        n: int = N_PARITY, name: str = "compat") -> dict:
+    """Card vs CPU on the first n samples of the compat input: relative L2
+    < 3e-3 or max abs <= 2/32768, gain_db and output_i within 0.01 dB.
+    The chunked path is held on 2^21 samples, so that its first chunk
+    boundary (1 323 000) falls inside."""
     from ame_tpu_torch.config import MasterSettings
     from ame_tpu_torch.graph.chain import master_graph
     from ame_tpu_torch.ops.quantize import int16_roundtrip
 
-    x = int16_roundtrip(torch.from_numpy(pcm[:N_PARITY]).to(torch.float32)
+    x = int16_roundtrip(torch.from_numpy(pcm[:n]).to(torch.float32)
                         * (1.0 / 32768.0))
-    settings = MasterSettings(**COMPAT)
+    settings = MasterSettings(**settings_dict)
     y_c, i_c = master_graph(x.cuda(), SR, settings)
     y_h, i_h = master_graph(x, SR, settings)
     y_c = y_c.cpu().double()
@@ -1058,62 +1574,78 @@ def phase_compat_parity(pcm: np.ndarray) -> dict:
     mx = (y_c - y_h).abs().max().item()
     d_gain = abs(i_c["gain_db"].item() - i_h["gain_db"].item())
     d_oi = abs(i_c["output_i"].item() - i_h["output_i"].item())
-    print(f"compat card vs CPU [{N_PARITY}, 2]: relative L2 {rel:.3e}, max "
+    print(f"{name} card vs CPU [{n}, 2]: relative L2 {rel:.3e}, max "
           f"|y| diff {mx:.3e}; gain_db {i_c['gain_db'].item():.4f} vs "
           f"{i_h['gain_db'].item():.4f}, output_i "
           f"{i_c['output_i'].item():.4f} vs {i_h['output_i'].item():.4f}")
     if not ((rel < 3e-3 or mx <= 2 * LSB) and d_gain <= GAIN_TOL_DB
             and d_oi <= GAIN_TOL_DB):
-        raise AssertionError(f"compat card vs CPU: rel {rel}, max {mx}, "
+        raise AssertionError(f"{name} card vs CPU: rel {rel}, max {mx}, "
                              f"gain {d_gain} dB, output_i {d_oi} dB")
     return {"rel_l2": rel, "max_abs_diff": mx}
 
 
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
-    (checked against plain, timed, split by launch), K1 in both directions
-    (checked, timed, split by launch), K2's carry and full sweeps and K3
-    (checked bit for bit against the full sweep's states, timed, with its
-    floor when the library has one) and K4 (from K3's starts, checked and
-    timed beside a device copy of m) on the compat main path's bands, K4
-    on random [3, 2^23 + 1234] input (the 4-byte route), and
-    the three device chains (quality, compat, compat fallback:
-    master_graph, with the device's busy time), with the ame_tpu_torch
-    package found under ROOT (default: this checkout), e.g. an unpacked
-    parent commit, so that two trees can be timed in turns on one card.
-    Prints one {"kernel_times": ...} line; no file is mastered."""
+    (checked against plain, timed, split by launch) and, where the package
+    has chunked compat, on the chunk columns [1 323 000, 14] and the
+    quality multiband cascades; K1 in both
+    directions (checked, timed, split by launch); K2's carry and full
+    sweeps and K3 (checked bit for bit against the full sweep's states,
+    timed, with its floor when the library has one) and K4 (from K3's
+    starts, checked and timed beside a device copy of m) on the compat
+    main path's bands; K4 on random [3, 2^23 + 1234] input (the 4-byte
+    route); K2's reset route (checked against K3 + K4 and its plain
+    version, its sweeps timed) on the chunked path's bands, where the
+    package has it; and the device chains (quality, compat, compat
+    fallback, and those of chunked compat and quality multiband where the
+    package runs them: master_graph, with the device's busy time), with the
+    ame_tpu_torch package found under ROOT (default: this checkout), e.g.
+    an unpacked parent commit, so that two trees can be timed in turns on
+    one card. Prints one {"kernel_times": ...} line; no file is mastered."""
     sys.path.insert(0, os.path.abspath(root))
     import ame_tpu_torch
     from ame_tpu_torch.config import MasterSettings
     from ame_tpu_torch.graph.chain import master_graph
     from ame_tpu_torch.ops import pydub_gain as pg
+    chunked = hasattr(pg, "pydub_gain_chunked")
     phase_device()
     phase_build()
-    cascades = phase_cascades()
-    wedge = _wedge_kernel(_wedge_input()[1])
+    cascades = {"main_path": phase_cascades()}
+    if chunked:
+        cascades["chunk_columns"] = phase_cascades_chunked()
+        cascades["quality_multiband"] = phase_cascades_mb()
+    wedge =_wedge_kernel(_wedge_input()[1])
     del wedge["env_p"]
     with tempfile.TemporaryDirectory() as tmp:
         x_compat = _compat_x(tmp)[2]
         x_steady = _steady_x(tmp)[1]
     m_main = _band_max_att(x_compat)
-    m_t, S, c_first, c_fix = _jacobi_inputs(m_main)
+    m_t, S, c_first, c_fix, _ = _jacobi_inputs(m_main)
     sweeps = _jacobi_times(m_t, c_first, c_fix)
     ia, ir = pg._scal(ATTACK, RELEASE)
     _, att_t = pg.gain_jacobi_cuda(m_t, c_fix.reshape(-1).contiguous(), ia,
                                    ir, True)
     G, n = m_main.shape
     p1 = _p1_kernel(m_main, _sweep_starts(att_t, G, S, n))
-    del att_t
+    del att_t, m_t
     p2 = _p2_kernel(m_main, p1.pop("starts"))
     p2["ragged"] = _p2_kernel(*_p2_random(N_KERNEL, 3))
+    if chunked:
+        sweeps["reset_route"] = _reset_main(_band_max_att_chunked(x_compat))
     rng = np.random.default_rng(0)
     x_quality = torch.from_numpy(np.trunc(np.clip(
         0.1 * rng.standard_normal((N_MAIN, 2)), -1, 1) * 32767.0).astype(
             np.float32) / 32768.0).cuda()
+    runs = [("quality", x_quality, FLAGSHIP), ("compat", x_compat, COMPAT),
+            ("compat_fallback", x_steady, COMPAT)]
+    if chunked:
+        runs += [("compat_chunked", x_compat, COMPAT_CHUNKED),
+                 ("compat_chunked_fallback", x_steady, COMPAT_CHUNKED),
+                 ("quality_mb", x_quality, QUALITY_MB),
+                 ("quality_mb16", x_quality, QUALITY_MB16)]
     chains = {}
-    for name, x, s in (("quality", x_quality, FLAGSHIP),
-                       ("compat", x_compat, COMPAT),
-                       ("compat_fallback", x_steady, COMPAT)):
+    for name, x, s in runs:
         settings = MasterSettings(**s)
         chain_ms = _cuda_ms(lambda: master_graph(x, SR, settings))
         busy = _chain_busy(name, lambda: master_graph(x, SR, settings),
@@ -1127,19 +1659,38 @@ def kernel_times(root: str) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     kind = phase_device()
+    try:
+        import ame_tpu_torch  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"chip_smoke: the ame_tpu_torch package is not "
+                         f"importable ({e}); run the script from the "
+                         f"repository checkout") from e
     phase_build()
     rows = phase_cascades()
+    chunk_rows = phase_cascades_chunked()
+    mb_rows = phase_cascades_mb()
     with tempfile.TemporaryDirectory() as tmp:
         main_run = phase_main(tmp)
         phase_parity()
+        mb = phase_quality_mb(tmp)
+        phase_quality_mb_parity()
         wedge = phase_wedge()
         compat = phase_compat_main(tmp)
-        gain = phase_gain(compat.pop("m_main"))
+        chunked = phase_compat_chunked(tmp)
+        chunked_fb = phase_compat_chunked_fallback(tmp)
+        gain = phase_gain(compat.pop("m_main"), chunked.pop("m_chunked"))
         fallback = phase_compat_fallback(tmp)
     phase_compat_parity(compat.pop("pcm"))
+    phase_compat_parity(chunked.pop("pcm"), COMPAT_CHUNKED, N_CHUNK_PARITY,
+                        "compat_chunked")
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
-             "compat_fallback": fallback["counts"]}
+             "compat_fallback": fallback["counts"],
+             "compat_chunked": chunked["counts"],
+             "compat_chunked_fallback": chunked_fb["counts"],
+             "quality_mb": mb["mb3"]["counts"],
+             "quality_mb16": mb["mb16"]["counts"]}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -1156,24 +1707,48 @@ def main() -> int:
     kernels = [
         entry("cascade_scan", csrc + "cascade_scan.cu",
               "ame_tpu/ops/pallas_scan.py:65", "quality",
-              max(max(r["max_abs_err_y"], r["max_abs_err_zf"])
-                  for r in rows),
+              max(max(max(r["max_abs_err_y"], r["max_abs_err_zf"])
+                      for r in rows),
+                  max(r["max_abs_err"] for r in chunk_rows + mb_rows)),
               sum(r["ms"] for r in quality),
               sum(r["plain_ms"] for r in quality),
               (sum(r["bound_ms"] for r in quality), "bytes"),
               note="ms, plain_ms and bound_ms: the quality path's three "
-                   "cascades together", per_cascade=rows),
+                   "cascades together; multiband_stage_totals: the K5 "
+                   "launches of one master's multiband stage together",
+              per_cascade=rows, chunk_columns=chunk_rows,
+              quality_multiband=mb_rows,
+              multiband_stage_totals={
+                  p: {key: sum(r[key] * r["uses"].get(p, 0)
+                               for r in mb_rows)
+                      for key in ("ms", "plain_ms", "bound_ms")}
+                  for p in ("quality_mb", "quality_mb16")}),
         entry("wedge_env", csrc + "wedge_env.cu",
               "ame_tpu/ops/limiter.py:114", "compat", wedge["max_abs_err"],
               wedge["ms"], wedge["plain_ms"], wedge["bound"],
               n=N_KERNEL, note="both directions",
               one_call_ms=wedge["one_call_ms"], phase_ms=wedge["phase_ms"]),
     ]
+    reset = gain["reset"]
     for name, line in (("gain_jacobi", 307), ("gain_p1", 140),
                        ("gain_p2", 231)):
         path = "compat" if name == "gain_jacobi" else "compat_fallback"
         p2 = gain["p2"]
-        extra = {"gain_jacobi": {"carry_sweep": gain["carry"]},
+        extra = {"gain_jacobi": {
+                     "carry_sweep": gain["carry"],
+                     "reset_route": {
+                         "replaces": f"{pg_src}:307 (has_resets=True)",
+                         "launches": paths["compat_chunked"][
+                             "gain_jacobi_resets"],
+                         "max_abs_err": max(reset["max_abs_err"],
+                                            reset["small"]["max_abs_err"]),
+                         "shape": reset["shape"],
+                         "plain_ms": reset["plain_ms"],
+                         "sweeps_small": reset["small"]["sweeps"],
+                         "sweeps_main": reset["sweeps"],
+                         "full_sweep": reset["reset"]["full"],
+                         "carry_sweep": reset["reset"]["carry"],
+                         "no_resets_same_input": reset["no_resets"]}},
                  "gain_p1": {"floor": gain["p1"]["floor"]},
                  "gain_p2": {"one_call_ms": p2["one_call_ms"],
                              "copy_ms": p2["copy_ms"],
@@ -1184,12 +1759,21 @@ def main() -> int:
             gain["errs"][name],
             gain["ms"][name], gain["plain_ms"][name], gain["bounds"][name],
             n=gain["n"], plain_n=gain["plain_n"][name], **extra))
-    print(json.dumps({"chains": {
-        p: {"device_chain_ms": r["chain_ms"], "file_ms": r["file_s"] * 1e3,
-            "busy_ms": r["busy"]["busy_ms"],
-            "idle_share": r["busy"]["idle_share"]}
-        for p, r in (("quality", main_run), ("compat", compat),
-                     ("compat_fallback", fallback))}}))
+    chains = {p: {"device_chain_ms": r["chain_ms"],
+                  "file_ms": r["file_s"] * 1e3,
+                  "busy_ms": r["busy"]["busy_ms"],
+                  "idle_share": r["busy"]["idle_share"]}
+              for p, r in (("quality", main_run), ("compat", compat),
+                           ("compat_fallback", fallback),
+                           ("compat_chunked", chunked),
+                           ("compat_chunked_fallback", chunked_fb),
+                           ("quality_mb", mb["mb3"]))}
+    chains["quality_mb16"] = {"device_chain_ms": mb["mb16"]["chain_ms"],
+                              "file_ms": None,
+                              "busy_ms": mb["mb16"]["busy"]["busy_ms"],
+                              "idle_share": mb["mb16"]["busy"]["idle_share"]}
+    print(f"run: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"chains": chains}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -121,6 +121,26 @@ def test_process_audio_success_contract(tmp_path):
     assert any("Musicologist" in s for s in warnings)
 
 
+def test_process_audio_manual_prompt_tags_like_reference(tmp_path):
+    """With art_prompt set and auto_generate_prompt off, the port calls
+    tag_callback exactly as ame_tpu.api.process_audio does ("Using manual
+    prompt."), then reports art as not available and succeeds."""
+    from ame_tpu.api import process_audio as ref_process_audio
+    src = str(tmp_path / "in.wav")
+    W.write_wav(src, make_test_signal("noise", SR, SR) * 0.2, SR)
+    base = {"input_file": src, "create_mp3": False,
+            "auto_generate_prompt": False, "art_prompt": "  a red sky  "}
+    ref_log, log = _Log(), _Log()
+    ref_process_audio(dict(base, output_file=str(tmp_path / "r.wav")),
+                      *ref_log.cb())
+    api.process_audio(dict(base, output_file=str(tmp_path / "p.wav")),
+                      *log.cb(), device="cpu")
+    assert ref_log.tags == ["Using manual prompt."]
+    assert log.tags == ref_log.tags
+    assert any(s.startswith("Warning:") and "art" in s for s in log.status)
+    assert log.status[-1].startswith("Success:")
+
+
 def test_process_audio_error_contract(tmp_path):
     """Missing input: Error: status, progress reset (0, 1), art None,
     'Processing failed.' tag."""
