@@ -1,14 +1,23 @@
 """ame_tpu_torch — the PyTorch / CUDA port of ``ame_tpu``.
 
 A second package beside the JAX reference (``ame_tpu/``), tested against it
-module by module. It imports ``torch`` and never ``jax``. Today it runs the
-quality mastering chain on WAV/AIFF, file in and file out, on one NVIDIA
-card (or on the CPU through the plain PyTorch versions); its one
-hand-written CUDA kernel, ``csrc/cascade_scan.cu``, runs every IIR cascade
-of the chain. ROADMAP.md lists what is still to be ported.
+module by module. It imports ``torch`` and never ``jax``. It runs, on one
+NVIDIA card (or on the CPU through the plain PyTorch versions):
+
+  * both mastering chains on WAV/AIFF, file in and file out: quality
+    (with the 3- or G-band multiband) and compat (unchunked or chunked);
+    every Pallas kernel of ``ame_tpu`` is a hand-written CUDA kernel here
+    (``csrc/cascade_scan.cu``, ``csrc/wedge_env.cu``, ``csrc/pydub_gain.cu``);
+  * the Musicologist (``analysis/``): resample, STFT / mel features and
+    the mood CNN with the shipped trained weights (``models/``), and the
+    creative prompt built from its brief (``creative/prompts.py``).
+
+MP3 export, art generation, streaming and the front ends are still to be
+ported (ROADMAP.md).
 
 Entry points: ``ame_tpu_torch.api.master_file`` / ``master_array`` /
-``process_audio`` and ``ame_tpu_torch.graph.chain.master_graph``.
+``process_audio``, ``ame_tpu_torch.graph.chain.master_graph`` and
+``ame_tpu_torch.analysis.musicologist.analyze_song`` / ``analyze_batch``.
 """
 
 __version__ = "0.1.0"

@@ -13,8 +13,13 @@ the reference's observability contract (SURVEY.md §5.5):
   * progress is reported as (step, total) with total = num_chunks + 4,
     where num_chunks = ceil(duration / 30 s), from the first emission on,
   * MP3 / analysis / art are best-effort sidecars; only the master path is
-    fatal. None of the sidecars is ported yet: each reports
-    ``Warning: ... not available in ame_tpu_torch yet`` (ROADMAP.md).
+    fatal. The analysis runs on ``device`` (``auto_generate_prompt``: the
+    Musicologist's brief becomes the tag line ``Mood: ... | Tempo: ... |
+    Brightness: ... | Density: ...`` and a creative art prompt; a failed
+    analysis reports ``Failed: Could not analyze audio. <error>`` and tags
+    ``Analysis Error: <error>``). MP3 export and art generation are not
+    ported yet: each reports ``Warning: ... not available in ame_tpu_torch
+    yet`` (ROADMAP.md).
 
 Input is staged as int16 where the file is PCM16 (half the upload bytes)
 and converted on the device; the master is quantized to int16 on the device
@@ -143,11 +148,31 @@ def process_audio(settings: Mapping[str, Any],
             status_callback(_not_ported("MP3 export"))
 
         status_callback("Mastering complete. Preparing for AI analysis...")
+        manual_prompt = (settings.get("art_prompt") or "").strip()
+        final_art_prompt = None
         if settings.get("auto_generate_prompt", False):
-            status_callback(_not_ported("Musicologist analysis"))
-            tag_callback("Analysis unavailable.")
-        elif (settings.get("art_prompt") or "").strip():
+            status_callback("Analyzing audio with the Musicologist...")
+            from ame_tpu_torch.analysis import musicologist
+            tech_brief = musicologist.analyze_song(input_file,
+                                                   device=device)
+            if "error" in tech_brief:
+                status_callback(
+                    f"Failed: Could not analyze audio. {tech_brief['error']}")
+                tag_callback(f"Analysis Error: {tech_brief['error']}")
+            else:
+                tag_callback(
+                    f"Mood: {tech_brief['mood']}"
+                    f" | Tempo: {tech_brief['tempo']}"
+                    f" | Brightness: {tech_brief['brightness']}"
+                    f" | Density: {tech_brief['density']}")
+                status_callback("Building creative prompt from analysis...")
+                from ame_tpu_torch.creative.prompts import (
+                    generate_creative_prompt)
+                final_art_prompt = generate_creative_prompt(tech_brief)
+        elif manual_prompt:
+            final_art_prompt = manual_prompt
             tag_callback("Using manual prompt.")
+        if final_art_prompt:
             status_callback(_not_ported("AI art generation"))
         status_callback("Success: Processing complete! (No art generated)")
         art_callback(None)

@@ -84,8 +84,27 @@ failure raises and the script exits non-zero without the final line:
  10. compat card vs CPU on the first 2^20 samples, chunked compat on the
      first 2^21 (a chunk boundary inside): relative L2 < 3e-3 or max abs
      <= 2/32768, loudnorm gain_db / output_i within 0.01 dB;
- 11. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
-     then the last line
+ 11. the Musicologist (no kernel of its own: torch.fft, cuBLAS, cuDNN):
+     (a) the package's mood CNN checkpoint loaded on the card (trained, 10
+     finite tensors); (b) card vs CPU on three 30 s 22 050 Hz inputs (0.1
+     N(0,1) seed 2, a 128 BPM click-tone, the compat input's mono mixdown
+     resampled; the resample itself within 1e-5): image max abs <= 1e-5,
+     logits <= 1e-3, centroid and RMS relative <= 1e-4, mood / key /
+     brightness / density equal, tempo equal unless the CPU's two best
+     tempo scores are within 1e-4 relative (a near-tie cuFFT may flip:
+     printed, not failed); (c) analyze_song on phase 4's 2^23-sample WAV
+     (five keys, no kernel launch, peak device memory printed); (d)
+     analyze_batch over eight paths (mixed rates and lengths, one missing)
+     equal to the per-track briefs, an error entry for the missing one;
+     (e) process_audio on phase 4's WAV with auto_generate_prompt: one
+     "Mood: " tag, a Success: status, no Error: / Failed:, 3 K5 launches;
+     (f) analyze_waveform on 30 s (CUDA events and host clock, x
+     realtime), analyze_song on the 2^23 WAV and analyze_batch a path
+     (host clock), and the analysis's busy time and idle share under
+     torch.profiler in a process of its own (``--musicologist-profile``:
+     one that ran no plain gain walk);
+ 12. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+     a {"musicologist": ...} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
@@ -96,10 +115,10 @@ and times, K2's sweep times, K3's check, time and floor and K4's checks
 and times (with the copy yardstick) at [3, 2^23], K4 at [3, 2^23 + 1234],
 K2's reset route (f) and the device chains (quality, compat, compat
 fallback, compat chunked and its fallback, quality multiband 3 and 16
-bands) only, with the ame_tpu_torch package under ROOT (default: this
-checkout; e.g. an unpacked parent commit, which may lack chunked compat
-and multiband: those parts are then left out), so that two trees can be
-timed in turns on one card.
+bands) and analyze_waveform on 30 s only, with the ame_tpu_torch package
+under ROOT (default: this checkout; e.g. an unpacked parent commit, which
+may lack chunked compat, multiband or the Musicologist: those parts are
+then left out), so that two trees can be timed in turns on one card.
 
 Every kernel's launch count is set to 0 just before each main path and read
 just after it. Times are medians of 3 warm runs, taken with
@@ -1585,6 +1604,239 @@ def phase_compat_parity(pcm: np.ndarray, settings_dict=COMPAT,
     return {"rel_l2": rel, "max_abs_diff": mx}
 
 
+# ---------------------------------------------------------------------------
+# The Musicologist (analysis/musicologist.py): torch.fft, cuBLAS, cuDNN; no
+# kernel of the repo's own
+# ---------------------------------------------------------------------------
+ASR = 22050                      # the Musicologist's analysis rate
+N_WINDOW = int(30.0 * ASR)       # its 30 s window
+MUS_IMG_TOL = 1e-5
+MUS_LOGIT_TOL = 1e-3
+MUS_REL_TOL = 1e-4
+TEMPO_TIE = 1e-4                 # relative gap of a near-tie in the tempo
+BRIEF_KEYS = {"mood", "tempo", "brightness", "density", "key"}
+
+
+def _click_tone(bpm: float = 128.0, n: int = N_WINDOW) -> np.ndarray:
+    """Clicks at bpm, each a Hann burst with a 1 kHz tone under it."""
+    y = np.zeros(n, np.float32)
+    t = np.arange(80) / ASR
+    burst = (np.hanning(80) * (0.5 + 0.4 * np.sin(2 * np.pi * 1000 * t))
+             ).astype(np.float32)
+    for i in range(0, n - 80, int(60.0 / bpm * ASR)):
+        y[i:i + 80] += burst
+    return y
+
+
+def _analysis_inputs() -> dict:
+    """The three 30 s, 22 050 Hz inputs of the card-vs-CPU check: bench.py's
+    0.1 N(0,1) (seed 2), a 128 BPM click-tone, and the compat input's mono
+    mixdown resampled on the CPU (its card resample is held to 1e-5)."""
+    from ame_tpu_torch.ops.resample import input_needed, resample
+    noise = (0.1 * np.random.default_rng(2).standard_normal(N_WINDOW)
+             ).astype(np.float32)
+    mono = np.mean(_compat_input(input_needed(N_WINDOW, SR, ASR)),
+                   axis=1).astype(np.float32)
+    y_h = resample(torch.from_numpy(mono), SR, ASR)[:N_WINDOW]
+    y_c = resample(torch.from_numpy(mono).cuda(), SR, ASR)[:N_WINDOW]
+    err = (y_c.cpu() - y_h).abs().max().item()
+    print(f"musicologist resample 44.1 -> 22.05 kHz, card vs CPU: max abs "
+          f"{err:.3e}")
+    if not err <= 1e-5:
+        raise AssertionError(f"resample card vs CPU {err} > 1e-5")
+    return {"noise": noise, "click128": _click_tone(),
+            "compat": y_h.numpy()}, err
+
+
+def _analysis_parity(name: str, y: np.ndarray) -> dict:
+    """One input through each stage on the card and on the CPU."""
+    from ame_tpu_torch.analysis import features as F
+    from ame_tpu_torch.analysis import musicologist as M
+    from ame_tpu_torch.models import mood_cnn
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        y_d = torch.from_numpy(y).to(dev)
+        model, _ = mood_cnn.load_params(device=dev)
+        img = M.spectrogram_image(y_d)
+        with torch.no_grad():
+            logits = model(img[None])[0]
+        feats = [v.item() for v in F.extract_all(y_d, float(ASR))]
+        out[dev] = {"img": img.cpu(), "logits": logits.cpu(),
+                    "feats": feats, "brief": M.analyze_waveform(y_d)}
+    c, h = out["cuda"], out["cpu"]
+    img_err = (c["img"] - h["img"]).abs().max().item()
+    logit_err = (c["logits"] - h["logits"]).abs().max().item()
+    rel = [abs(c["feats"][i] - h["feats"][i]) / abs(h["feats"][i])
+           for i in (1, 2)]
+    _, score = F.tempo_scores(
+        F.onset_envelope(torch.from_numpy(y), float(ASR)), float(ASR))
+    top = torch.topk(score, 2).values
+    gap = ((top[0] - top[1]) / top[0].abs()).item()
+    tie = gap <= TEMPO_TIE
+    row = {"image_max_abs": img_err, "logits_max_abs": logit_err,
+           "centroid_rel": rel[0], "rms_rel": rel[1],
+           "tempo_card": c["feats"][0], "tempo_cpu": h["feats"][0],
+           "tempo_top2_gap": gap, "brief_card": c["brief"],
+           "brief_cpu": h["brief"]}
+    print(f"musicologist card vs CPU [{name}]: image {img_err:.3e}, logits "
+          f"{logit_err:.3e}, centroid rel {rel[0]:.3e}, rms rel "
+          f"{rel[1]:.3e}, tempo {c['feats'][0]:.3f} / {h['feats'][0]:.3f} "
+          f"BPM (top-2 score gap {gap:.3e}); brief {c['brief']}")
+    if tie and c["feats"][0] != h["feats"][0]:
+        print(f"  tempo near-tie on the CPU (gap {gap:.3e} <= {TEMPO_TIE}): "
+              f"the card took the other lag")
+    fields = ("mood", "brightness", "density", "key") + (
+        () if tie else ("tempo",))
+    bad = [k for k in fields if c["brief"][k] != h["brief"][k]]
+    if not tie and c["feats"][0] != h["feats"][0]:
+        bad.append("tempo_bpm")
+    if (bad or not img_err <= MUS_IMG_TOL or not logit_err <= MUS_LOGIT_TOL
+            or not max(rel) <= MUS_REL_TOL):
+        raise AssertionError(f"musicologist card vs CPU [{name}]: {row}, "
+                             f"unequal {bad}")
+    return row
+
+
+def _musicologist_paths(tmp: str) -> list:
+    """Eight paths for analyze_batch: the 2^23 quality and compat WAVs,
+    five of mixed rates and lengths (groups of 661 500, 441 000 and
+    264 600 samples at 22.05 kHz) and one that does not exist."""
+    from ame_tpu_torch.io.wav import write_wav
+    rng = np.random.default_rng(7)
+    paths = [os.path.join(tmp, "in.wav"), os.path.join(tmp, "compat_in.wav")]
+    for i, (secs, sr, ch) in enumerate([(40.0, 48000, 2), (30.0, ASR, 1),
+                                        (20.0, ASR, 1), (12.0, SR, 2),
+                                        (20.0, SR, 2)]):
+        n = int(secs * sr)
+        x = (0.05 * (i + 1) * rng.standard_normal((n, ch))
+             + 0.3 * np.sin(2 * np.pi * (110.0 * (i + 1))
+                            * np.arange(n) / sr)[:, None])
+        p = os.path.join(tmp, f"mus_{i}.wav")
+        write_wav(p, np.clip(x, -1, 1), sr)
+        paths.append(p)
+    paths.insert(4, os.path.join(tmp, "missing.wav"))
+    return paths
+
+
+def _profile_analysis() -> dict:
+    """The analysis's busy time and idle share, from torch.profiler in a
+    process of its own: one that has run no plain gain walk, after which
+    the profiler drops records (PERF.md section 7)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--musicologist-profile"], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"musicologist profile failed: {r.stderr}")
+    lines = r.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1])
+
+
+def musicologist_profile() -> int:
+    """``--musicologist-profile``: analyze_waveform on the 30 s noise,
+    event-timed and under torch.profiler; prints one JSON line."""
+    from ame_tpu_torch.analysis import musicologist as M
+    y = torch.from_numpy((0.1 * np.random.default_rng(2).standard_normal(
+        N_WINDOW)).astype(np.float32)).cuda()
+    ms = _cuda_ms(lambda: M.analyze_waveform(y))
+    busy = _chain_busy("musicologist analyze_waveform",
+                       lambda: M.analyze_waveform(y), ms)
+    records = sum(k for _, k in _profile(lambda: M.analyze_waveform(y),
+                                         REPS).values())
+    print(json.dumps({"event_ms": ms, "device_records_per_call":
+                      records / REPS, **busy}))
+    return 0
+
+
+def phase_musicologist(tmp: str) -> dict:
+    """(a) the shipped weights on the card; (b) card vs CPU on three 30 s
+    inputs; (c) analyze_song on the 2^23 WAV; (d) analyze_batch over eight
+    paths; (e) process_audio with auto_generate_prompt; (f) times."""
+    from ame_tpu_torch.analysis import musicologist as M
+    from ame_tpu_torch.api import process_audio
+    from ame_tpu_torch.models import mood_cnn
+
+    # (a)
+    model, trained = mood_cnn.load_params(device="cuda")
+    state = model.state_dict()
+    if not (trained and len(state) == 10 and all(
+            t.is_cuda and torch.isfinite(t).all().item()
+            for t in state.values())):
+        raise AssertionError(f"mood CNN weights on the card: trained "
+                             f"{trained}, {len(state)} tensors")
+    print(f"musicologist weights: trained, {len(state)} finite tensors, "
+          f"{sum(t.numel() for t in state.values())} parameters")
+    # (b)
+    inputs, resample_err = _analysis_inputs()
+    parity = {name: _analysis_parity(name, y) for name, y in inputs.items()}
+    # (c)
+    src = os.path.join(tmp, "in.wav")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    brief = M.analyze_song(src)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"musicologist analyze_song on the 2^23-sample WAV: {brief}; "
+          f"peak device memory {peak} B ({peak - base} B over the "
+          f"{base} B held before the call); launches {counts}")
+    if set(brief) != BRIEF_KEYS or any(counts.values()):
+        raise AssertionError(f"analyze_song: {brief}, launches {counts}")
+    # (d)
+    paths = _musicologist_paths(tmp)
+    briefs = M.analyze_batch(paths)
+    singles = [M.analyze_song(p) for p in paths]
+    if briefs != singles or set(briefs[4]) != {"error"} or any(
+            set(b) != BRIEF_KEYS for i, b in enumerate(briefs) if i != 4):
+        raise AssertionError(f"analyze_batch {briefs} != per-track "
+                             f"{singles}")
+    print(f"musicologist analyze_batch over {len(paths)} paths equals the "
+          f"per-track briefs; missing file: {briefs[4]}")
+    # (e)
+    status, tags = [], []
+    _zero_counts()
+    process_audio({"input_file": src,
+                   "output_file": os.path.join(tmp, "mus_out.wav"),
+                   "auto_generate_prompt": True, **FLAGSHIP},
+                  status.append, lambda *a: None, lambda *a: None,
+                  tags.append)
+    pa_counts = _read_counts()
+    print(f"musicologist process_audio: tags {tags}; statuses {status}; "
+          f"launches {pa_counts}")
+    if (len(tags) != 1 or not tags[0].startswith("Mood: ")
+            or not any(s.startswith("Success:") for s in status)
+            or any(s.startswith(("Error:", "Failed:")) for s in status)
+            or pa_counts["cascade_scan"] != 3):
+        raise AssertionError(f"process_audio: tags {tags}, statuses "
+                             f"{status}, launches {pa_counts}")
+    # (f)
+    y_c = torch.from_numpy(inputs["noise"]).cuda()
+    wave_ms = _cuda_ms(lambda: M.analyze_waveform(y_c))
+    wave_s = _host_s(lambda: M.analyze_waveform(y_c))
+    song_s = _host_s(lambda: M.analyze_song(src))
+    batch_s = _host_s(lambda: M.analyze_batch(paths))
+    busy = _profile_analysis()
+    print(f"musicologist analyze_waveform (30 s): {wave_ms:.3f} ms events "
+          f"= {30.0 / (wave_ms / 1e3):.1f}x realtime, host "
+          f"{wave_s * 1e3:.3f} ms = {30.0 / wave_s:.1f}x realtime; "
+          f"analyze_song (2^23 WAV) {song_s * 1e3:.1f} ms; analyze_batch "
+          f"{batch_s * 1e3 / len(paths):.1f} ms a path ({len(paths)} paths)")
+    return {"weights_trained": trained, "resample_max_abs": resample_err,
+            "parity": parity, "song_brief": brief, "song_counts": counts,
+            "song_peak_bytes": peak, "song_peak_over_base_bytes":
+            peak - base, "batch_paths": len(paths), "process_audio_tags": tags,
+            "process_audio_counts": pa_counts,
+            "analyze_waveform_ms": wave_ms,
+            "analyze_waveform_host_ms": wave_s * 1e3,
+            "analyze_waveform_x_realtime": 30.0 / (wave_ms / 1e3),
+            "analyze_waveform_host_x_realtime": 30.0 / wave_s,
+            "analyze_song_ms": song_s * 1e3,
+            "analyze_batch_ms_per_path": batch_s * 1e3 / len(paths),
+            "profile": busy}
+
+
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
     (checked against plain, timed, split by launch) and, where the package
@@ -1651,10 +1903,23 @@ def kernel_times(root: str) -> int:
         busy = _chain_busy(name, lambda: master_graph(x, SR, settings),
                            chain_ms)
         chains[name] = {"device_chain_ms": chain_ms, **busy}
+    analysis = None
+    if os.path.exists(os.path.join(os.path.dirname(ame_tpu_torch.__file__),
+                                   "analysis", "musicologist.py")):
+        from ame_tpu_torch.analysis import musicologist as M
+        y = torch.from_numpy((0.1 * np.random.default_rng(2).standard_normal(
+            N_WINDOW)).astype(np.float32)).cuda()
+        wave_ms = _cuda_ms(lambda: M.analyze_waveform(y))
+        analysis = {"analyze_waveform_ms": wave_ms,
+                    "analyze_waveform_host_ms":
+                        _host_s(lambda: M.analyze_waveform(y)) * 1e3,
+                    **_chain_busy("musicologist analyze_waveform",
+                                  lambda: M.analyze_waveform(y), wave_ms)}
     print(json.dumps({"kernel_times": {
         "package": os.path.dirname(ame_tpu_torch.__file__),
         "cascade_scan": cascades, "wedge_env": wedge, "gain_jacobi": sweeps,
-        "gain_p1": p1, "gain_p2": p2, "chains": chains}}))
+        "gain_p1": p1, "gain_p2": p2, "chains": chains,
+        "musicologist": analysis}}))
     return 0
 
 
@@ -1682,15 +1947,17 @@ def main() -> int:
         chunked_fb = phase_compat_chunked_fallback(tmp)
         gain = phase_gain(compat.pop("m_main"), chunked.pop("m_chunked"))
         fallback = phase_compat_fallback(tmp)
-    phase_compat_parity(compat.pop("pcm"))
-    phase_compat_parity(chunked.pop("pcm"), COMPAT_CHUNKED, N_CHUNK_PARITY,
-                        "compat_chunked")
+        phase_compat_parity(compat.pop("pcm"))
+        phase_compat_parity(chunked.pop("pcm"), COMPAT_CHUNKED,
+                            N_CHUNK_PARITY, "compat_chunked")
+        mus = phase_musicologist(tmp)
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"],
              "compat_chunked": chunked["counts"],
              "compat_chunked_fallback": chunked_fb["counts"],
              "quality_mb": mb["mb3"]["counts"],
-             "quality_mb16": mb["mb16"]["counts"]}
+             "quality_mb16": mb["mb16"]["counts"],
+             "musicologist": mus["song_counts"]}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -1775,6 +2042,7 @@ def main() -> int:
     print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"chains": chains}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"musicologist": mus}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -1782,6 +2050,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--musicologist-profile"]:
+        sys.exit(musicologist_profile())
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else
                               os.path.dirname(os.path.abspath(__file__))))

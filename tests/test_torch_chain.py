@@ -100,8 +100,9 @@ class _Log:
 
 def test_process_audio_success_contract(tmp_path):
     """Success: prefix, no Error:, one progress denominator from the first
-    emission (num_chunks + 4) ending at (total, total), art None, and the
-    unported sidecars reported as warnings."""
+    emission (num_chunks + 4) ending at (total, total), art None, the
+    Musicologist's tag line, and the unported sidecars (MP3, art) reported
+    as warnings."""
     src = str(tmp_path / "in.wav")
     W.write_wav(src, make_test_signal("noise", SR * 2, SR) * 0.2, SR)
     log = _Log()
@@ -118,7 +119,9 @@ def test_process_audio_success_contract(tmp_path):
     assert os.path.exists(str(tmp_path / "m.wav"))
     warnings = [s for s in log.status if s.startswith("Warning:")]
     assert any("MP3" in s for s in warnings)
-    assert any("Musicologist" in s for s in warnings)
+    assert any("art" in s for s in warnings)
+    assert len(log.tags) == 1 and log.tags[0].startswith("Mood: ")
+    assert "Analyzing audio with the Musicologist..." in log.status
 
 
 def test_process_audio_manual_prompt_tags_like_reference(tmp_path):

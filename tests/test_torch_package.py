@@ -17,15 +17,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """Importing every module of ame_tpu_torch leaves jax unimported."""
+    """Importing every module of ame_tpu_torch (the Musicologist's too) and
+    loading the mood CNN's checkpoint leaves jax, flax, msgpack and ame_tpu
+    unimported."""
     code = ("import importlib, pkgutil, sys\n"
             "import ame_tpu_torch\n"
             "for m in pkgutil.walk_packages(ame_tpu_torch.__path__, "
             "'ame_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import ame_tpu_torch.api\n"
+            "import ame_tpu_torch.analysis.musicologist\n"
+            "import ame_tpu_torch.creative.prompts\n"
+            "from ame_tpu_torch.models import mood_cnn\n"
+            "assert mood_cnn.load_params(device='cpu')[1]\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
-            "assert 'ame_tpu' not in sys.modules\n")
+            "for name in ('flax', 'msgpack', 'ame_tpu'):\n"
+            "    assert name not in sys.modules, name\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
