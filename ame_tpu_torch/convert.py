@@ -3,7 +3,8 @@
 The mastering chains have no trained weights: what must match between
 ``ame_tpu`` and ``ame_tpu_torch`` there is the parameters and the filter
 state (``zi``/``zf`` keep scipy's [k, C, 2] layout on both sides, so either
-side's state can be handed to the other as a numpy array). The mood CNN's
+side's state can be handed to the other as a numpy array);
+``streaming_state`` moves a streamer's carried state across. The mood CNN's
 trained weights are a flax tree; ``mood_cnn_state_dict`` turns it into the
 port's ``MoodCNN`` state dict.
 """
@@ -28,6 +29,48 @@ def params_from_numpy(d: dict, device) -> dict:
         else:
             out[name] = torch.as_tensor(a.astype(np.float32), device=device)
     return out
+
+
+_QUALITY_STATE = ("zi_a", "zi_e", "past", "pend", "u_prev")
+_MULTIBAND_STATE = ("mb_sq_hist", "mb_n_seen", "mb_u_prev", "mb_zi_att")
+_LIMITER_STATE = ("pend", "carry")
+# the compat limiter's host constants, which the port's own
+# ``ops/limiter.alimiter_stream_init`` derives from the sample rate
+_LIMITER_CONSTANTS = ("pieces_r", "pieces_a", "hold", "limit", "level_in",
+                      "scale")
+
+
+def streaming_state(jax_state, device="cpu") -> dict:
+    """An ``ame_tpu`` streamer's carried state (its ``_state``: jax or numpy
+    arrays) -> the same keys as float32 tensors on ``device``. Both packages
+    keep the same keys and layouts, so this is a key check plus a move:
+
+      * ``StreamingMaster``: ``zi_a`` [2, 2, 2], ``zi_e`` [4, 2, 2] (scipy
+        layout), ``past`` / ``pend`` [A-1, 2], ``u_prev``; with multiband
+        ``zi_mb{i}`` [k_i, 2, 2] per band, ``mb_sq_hist``, ``mb_n_seen``,
+        ``mb_u_prev`` [G] and ``mb_zi_att`` [G, 2]. Hand the result to
+        ``ame_tpu_torch.streaming.StreamingMaster.resume``.
+      * the compat limiter (``ops/limiter.alimiter_stream_step``'s state,
+        the one ``StreamingCompatMaster`` carries): ``pend`` [m, 2] and
+        ``carry`` [6]; its host constants are left out (the port's
+        ``alimiter_stream_init`` has its own), merge the result into it.
+    """
+    keys = set(jax_state)
+    if "carry" in keys:
+        take = _LIMITER_STATE
+        extra = keys - set(_LIMITER_STATE) - set(_LIMITER_CONSTANTS)
+    else:
+        take = _QUALITY_STATE
+        if "mb_u_prev" in keys:
+            G = int(np.shape(jax_state["mb_u_prev"])[0])
+            take += tuple(f"zi_mb{i}" for i in range(G)) + _MULTIBAND_STATE
+        extra = keys - set(take)
+    missing = set(take) - keys
+    if missing or extra:
+        raise ValueError(f"not a streamer state: missing {sorted(missing)}, "
+                         f"unexpected {sorted(extra)}")
+    return {k: torch.from_numpy(np.array(jax_state[k], np.float32)).to(device)
+            for k in take}
 
 
 def mood_cnn_state_dict(params: dict) -> dict:

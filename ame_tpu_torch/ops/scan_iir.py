@@ -3,8 +3,9 @@
 
 Port of ``ame_tpu/ops/scan_iir.py``: ``_state_space_np`` (the float64 host
 construction of the coupled-form cascade state space), the scipy zi/zf
-transforms of ``_zi_transforms`` and ``sosfilt_chunked`` (chunked compat's
-per-chunk state resets). The JAX module's scan engines are not
+transforms of ``_zi_transforms``, ``biquad_scan`` (one biquad with a
+carried zi: the streaming attack smoother) and ``sosfilt_chunked`` (chunked
+compat's per-chunk state resets). The JAX module's scan engines are not
 ported: in the port a cascade runs through one of two implementations of the
 same math,
 
@@ -154,6 +155,16 @@ def sosfilt(sos, x: torch.Tensor, zi=None):
         from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
         return sosfilt_tileconv(sos, x, zi)
     raise ValueError(f"sosfilt: unsupported device {x.device}")
+
+
+def biquad_scan(x: torch.Tensor, coeffs, zi=None):
+    """One biquad along axis 0: a k = 1 ``sosfilt``.
+
+    coeffs: host [6] (b0, b1, b2, a0, a1, a2), a0 == 1. x: [N, C]. zi:
+    scipy lfilter layout [C, 2], or None. Returns (y [N, C], zf [C, 2])."""
+    sos = np.asarray(coeffs, np.float64).reshape(1, 6)
+    y, zf = sosfilt(sos, x, None if zi is None else zi[None])
+    return y, zf[0]
 
 
 def sosfilt_chunked(sos, x: torch.Tensor, chunk_len: int) -> torch.Tensor:

@@ -103,8 +103,31 @@ failure raises and the script exits non-zero without the final line:
      (host clock), and the analysis's busy time and idle share under
      torch.profiler in a process of its own (``--musicologist-profile``:
      one that ran no plain gain walk);
- 12. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
-     a {"musicologist": ...} line, then the last line
+ 12. streaming (streaming.py): (a) the 2^23-sample quality track with a
+     hot section streamed in blocks of 4096 (flagship settings, gain -2 dB;
+     plain, 3-band and 16-band multiband): every sample emitted, within
+     1e-4 / 2e-4 of the port's offline composition on the card, K5 exactly
+     2 / 6 / 57 times a block and no other kernel, card vs CPU on the first
+     2^20 samples within 2e-4, its time; (b) K5 at stream shapes (N = 1,
+     63, 440, 512, 4097, 48 000 at C = 2; the attack smoother at C = 3 and
+     16) against its plain version from a non-zero zi, and 2048 blocks
+     chained zf -> zi against one call (1e-4, no drift); K1's reverse
+     direction at n = 1, 31, 2000, 3520, 8193 (1e-5); (c) the compat
+     input's 2^23 track pushed in 100 000-sample pieces through
+     StreamingCompatMaster (gain 0, multiband) against the offline chunked
+     chain (max <= 8/32768, 99.9th percentile <= 1/32768 + 1e-6, median 0):
+     per block one K1 (reverse) launch, six K5, K2 and no reset route, each
+     K1 launch held to its plain version (1e-5); steady 0.5 noise (K3 and
+     K4 launch); remainders of 1 and 31 samples after one block; K2 and
+     K3 + K4 at n = 1, 31, 1000 bit for bit against the plain walk; (d) block
+     latency as benchmarks/bench_streaming.py measures it (48 kHz, blocks of
+     512, 1024, 4096, 48 000; 3 warm, 200 timed) for quality plain, 3-band
+     and 16-band, launches per block, host us a sosfilt_cuda call, and the
+     busy time and idle share at 4096 under torch.profiler in a process of
+     its own (``--streaming-profile``);
+ 13. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+     a {"musicologist": ...} line, a {"streaming": ...} line, then the last
+     line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
@@ -1837,6 +1860,494 @@ def phase_musicologist(tmp: str) -> dict:
             "profile": busy}
 
 
+# ---------------------------------------------------------------------------
+# Streaming (streaming.py): the quality stream's cascades on K5 with zi
+# carried block to block; the compat stream's blocks on K5, K1 (reverse:
+# the streaming limiter's attack side), K2, and K3 + K4 on steady input
+# ---------------------------------------------------------------------------
+STREAM_BLOCK = 4096
+STREAM_GAIN_DB = -2.0
+STREAM_QUALITY = {k: v for k, v in FLAGSHIP.items() if k != "lufs"}
+STREAM_PATHS = {"stream_quality": (STREAM_QUALITY, 1e-4),
+                "stream_quality_mb": (dict(STREAM_QUALITY, multiband=True),
+                                      2e-4),
+                "stream_quality_mb16": (dict(STREAM_QUALITY,
+                                             mb_edges=EDGES_16), 2e-4)}
+N_STREAM = N_MAIN
+N_STREAM_PARITY = N_PARITY
+STREAM_PUSH = 100_000          # compat pushes, not aligned to the block
+STREAM_TAILS = (1, 31)         # compat flush remainders after one block
+COMPAT_STREAM = dict(COMPAT_CHUNKED, lufs=None)
+STREAM_K5_N = (1, 63, 440, 512, 4097, 48000)
+STREAM_K1_N = (1, 31, 2000, 3520, 8193)
+STREAM_GAIN_N = (1, 31, 1000)  # compat remainders: the gain kernels' tails
+STREAM_CHAIN_BLOCKS = 2048
+BENCH_SR = 48000               # benchmarks/bench_streaming.py's set-up
+BENCH_BLOCKS = (512, 1024, 4096, 48000)
+BENCH_SETTINGS = {"bass_boost": 2.0, "width": 1.2, "analog_character": 15.0}
+BENCH_GAIN_DB = -1.0
+BENCH_WARM, BENCH_REPS = 3, 200
+BENCH_PATHS = {"quality": BENCH_SETTINGS,
+               "quality_mb": dict(BENCH_SETTINGS, multiband=True),
+               "quality_mb16": dict(BENCH_SETTINGS, mb_edges=EDGES_16)}
+PROFILE_BLOCKS = 50
+
+
+def _stream_input(n: int) -> np.ndarray:
+    """The quality cell's track (0.1 N(0,1), seed 0) with a hot section
+    (x9 over its middle sixth, as tests/test_streaming.py's program) that
+    drives the limiter, clipped to [-1, 1]."""
+    x = 0.1 * np.random.default_rng(0).standard_normal((n, 2))
+    x[n // 3:n // 2] *= 9.0
+    return np.clip(x, -1.0, 1.0).astype(np.float32)
+
+
+def _stream(sm, x: np.ndarray, block: int) -> np.ndarray:
+    """x through the streamer in blocks of `block` (numpy in, numpy out, as
+    a caller on the host feeds it), then the flush."""
+    outs = [sm.process(x[i:i + block]) for i in range(0, x.shape[0], block)]
+    outs.append(sm.flush())
+    return np.concatenate(outs, axis=0)
+
+
+def _stream_offline(x: torch.Tensor, settings: dict, gain_db: float):
+    """The port's offline quality composition on x's device:
+    analog_character_quality -> apply_eq_quality -> stereo_width_quality ->
+    multiband -> static gain -> lookahead_limiter."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    from ame_tpu_torch.graph import multiband as mb
+    from ame_tpu_torch.ops import eq, saturate, stereo
+    from ame_tpu_torch.ops.limiter import lookahead_limiter
+    s = MasterSettings(**settings)
+    p = chain.params_from_settings(s, x.device)
+    y = x
+    if s.analog_character:
+        y = saturate.analog_character_quality(y, SR, s.analog_character)
+    y = eq.apply_eq_quality(y, SR, s.bass_boost, s.mid_cut,
+                            s.presence_boost, s.treble_boost)
+    if s.width != 1.0:
+        y = stereo.stereo_width_quality(y, s.width)
+    if s.mb_edges is not None:
+        y = mb.multiband_quality_n(y, SR, s.mb_edges, p["threshs"],
+                                   p["ratios"])
+    elif s.multiband:
+        y = mb.multiband_quality(y, SR, p["threshs"], p["ratios"])
+    return lookahead_limiter(y * 10.0 ** (gain_db / 20.0), SR)
+
+
+def _stream_k5_per_block(settings: dict) -> int:
+    """K5 launches of one quality stream block: the analog shelves and the
+    EQ, and with multiband one a band piece of at most 8 sections plus the
+    attack smoother."""
+    s = settings
+    n = (1 if s.get("analog_character", 0) else 0) + 1
+    if s.get("mb_edges") is not None:
+        n += _mb_launches(s["mb_edges"])
+    elif s.get("multiband"):
+        n += _mb_launches(None)
+    return n
+
+
+def _stream_quality() -> dict:
+    """(a) The 2^23-sample track streamed in blocks of 4096 (flagship,
+    gain -2 dB; plain, 3-band and 16-band multiband): every sample emitted,
+    within 1e-4 (plain) / 2e-4 (multiband) of the offline composition on
+    the card; K5 exactly its per-block count a block and no other kernel;
+    card against CPU on the first 2^20 samples within 2e-4."""
+    from ame_tpu_torch.streaming import StreamingMaster
+    x_np = _stream_input(N_STREAM)
+    x = torch.from_numpy(x_np).cuda()
+    blocks = -(-N_STREAM // STREAM_BLOCK)
+    out = {}
+    for name, (settings, tol) in STREAM_PATHS.items():
+        want = _stream_offline(x, settings, STREAM_GAIN_DB).cpu().numpy()
+        sm = StreamingMaster(SR, settings, gain_db=STREAM_GAIN_DB,
+                             device="cuda")
+        _zero_counts()
+        t0 = time.perf_counter()
+        got = _stream(sm, x_np, STREAM_BLOCK)
+        secs = time.perf_counter() - t0
+        counts = _read_counts()
+        per_block = _stream_k5_per_block(settings)
+        err = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("inf")
+        n_par = N_STREAM_PARITY
+        card = _stream(StreamingMaster(SR, settings, gain_db=STREAM_GAIN_DB,
+                                       device="cuda"), x_np[:n_par],
+                       STREAM_BLOCK)
+        host = _stream(StreamingMaster(SR, settings, gain_db=STREAM_GAIN_DB,
+                                       device="cpu"), x_np[:n_par],
+                       STREAM_BLOCK)
+        cpu_err = float(np.abs(card - host).max())
+        print(f"{name}: [{N_STREAM}, 2] in {blocks} blocks of "
+              f"{STREAM_BLOCK}: {secs:.3f} s = {N_STREAM / SR / secs:.1f}x "
+              f"realtime; emitted {got.shape[0]}; vs offline {err:.3e} "
+              f"(<= {tol}); card vs CPU [{n_par}, 2] {cpu_err:.3e}; "
+              f"launches {json.dumps(counts)} ({per_block} K5 a block)")
+        if got.shape != x_np.shape or not err <= tol:
+            raise AssertionError(f"{name}: emitted {got.shape}, vs offline "
+                                 f"{err} > {tol}")
+        if not cpu_err <= PARITY_TOL:
+            raise AssertionError(f"{name}: card vs CPU {cpu_err}")
+        if counts["cascade_scan"] != blocks * per_block or any(
+                v for k, v in counts.items() if k != "cascade_scan"):
+            raise AssertionError(f"{name}: launches {counts}, expected "
+                                 f"{per_block} K5 a block and nothing else")
+        out[name] = {"counts": counts, "blocks": blocks,
+                     "k5_per_block": per_block, "seconds": secs,
+                     "x_realtime": N_STREAM / SR / secs,
+                     "max_abs_err": err, "card_vs_cpu": cpu_err,
+                     "peak": float(np.abs(got).max())}
+    return out
+
+
+def _stream_k5() -> dict:
+    """(b) K5 at stream shapes against its plain version on the card, from
+    a non-zero zi (y and zf within 1e-4), timed: the quality stream's
+    cascades (analog k=2, EQ k=4, a 16-band piece of 8 sections) at C = 2
+    on N in STREAM_K5_N, the attack smoother at C = 3 and 16; then the EQ
+    over 2048 blocks of 4096 with zf -> zi against one call on the whole
+    2^23 samples (within 1e-4, no drift)."""
+    from ame_tpu_torch import config as C
+    from ame_tpu_torch.graph import multiband as mb
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    from ame_tpu_torch.ops.compressor import attack_sos
+    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
+    q = _quality_cascades()
+    piece8 = np.asarray(mb._band_cascades_n(SR, EDGES_16)[-1])[:8]
+    smoother = attack_sos(SR, C.MB_ATTACK_MS)
+    rows = []
+    for name, sos, c in (("analog_shelves_k2", q["analog_shelves_k2"], 2),
+                         ("eq_k4", q["eq_k4"], 2),
+                         ("mb16_piece_k8", piece8, 2),
+                         ("attack_smoother_C3", smoother, 3),
+                         ("attack_smoother_C16", smoother, 16)):
+        for n in STREAM_K5_N:
+            rows.append(_cascade_row(name, sos, *_noise_input(n, c, 5),
+                                     stream_n=n))
+    sos = q["eq_k4"]
+    nb = STREAM_CHAIN_BLOCKS
+    x, pre = _noise_input(nb * STREAM_BLOCK, 2, 6)
+    _, zi0 = sosfilt_tileconv(sos, pre)
+    zi0 = zi0.contiguous()
+    y_one, zf_one = sosfilt_cuda(sos, x, zi0)
+    zi, ys = zi0, []
+    for b in range(nb):
+        y, zi = sosfilt_cuda(sos, x[b * STREAM_BLOCK:(b + 1) * STREAM_BLOCK],
+                             zi)
+        ys.append(y)
+    err = (torch.cat(ys) - y_one).abs().amax(dim=1)
+    first = err[:STREAM_BLOCK].max().item()
+    last = err[-STREAM_BLOCK:].max().item()
+    chain_err = max(err.max().item(), (zi - zf_one).abs().max().item())
+    print(f"K5 at stream shapes: {len(rows)} shapes, max err "
+          f"{max(r['max_abs_err'] for r in rows):.3e}; eq_k4 over {nb} "
+          f"blocks of {STREAM_BLOCK} with zf -> zi vs one call: {chain_err:.3e}"
+          f" (first block {first:.3e}, last {last:.3e})")
+    if not (chain_err <= KERNEL_TOL and last <= max(4 * first, 1e-6)):
+        raise AssertionError(f"K5 block chain vs one call {chain_err}, "
+                             f"last block {last} vs first {first}")
+    return {"rows": rows, "chain": {"blocks": nb, "max_abs_err": chain_err,
+                                    "first_block": first,
+                                    "last_block": last}}
+
+
+def _stream_k1() -> list:
+    """K1's reverse direction (the streaming limiter's attack side) at
+    short lengths, against its plain version on the card (1e-5), timed."""
+    from ame_tpu_torch.ops.limiter import _wedge_pieces
+    from ame_tpu_torch.ops.wedge_env import wedge_env_cuda, wedge_env_plain
+    pieces = _wedge_pieces(float(round(5.0 * SR / 1000.0)))
+    rows = []
+    for n in STREAM_K1_N:
+        peak = torch.from_numpy(np.abs(0.5 * np.random.default_rng(n)
+                                       .standard_normal(n)).astype(
+                                           np.float32)).cuda()
+        peak[n // 2] = 2.0                     # one deep sample at least
+        dep = torch.clamp(1.0 - 0.98 / torch.clamp(peak, min=1e-9), min=0.0)
+        env_k = wedge_env_cuda(dep, pieces, True)
+        env_p = wedge_env_plain(dep, pieces, True)
+        err = (env_k - env_p).abs().max().item()
+        if not err <= WEDGE_TOL:
+            raise AssertionError(f"K1 reverse at n = {n}: {err} > "
+                                 f"{WEDGE_TOL}")
+        ms = _cuda_ms(lambda: wedge_env_cuda(dep, pieces, True),
+                      KERNEL_CALLS)
+        plain_ms = _cuda_ms(lambda: wedge_env_plain(dep, pieces, True))
+        bound = _bound(2 * n * 4, 4 * len(pieces) * n)
+        rows.append({"n": n, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0]})
+        print(f"K1 reverse n = {n}: err {err:.3e}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound[0]:.6f} ms")
+    return rows
+
+
+def _stream_gain_tails() -> list:
+    """K2, and K3 + K4, at the lengths of a compat flush's remainder
+    (shorter than one 32-sample group, and ragged), from random
+    max-attenuations and a non-zero entering state: the engine's Jacobi
+    half (K2; the chains it reports converged) and its two-pass half
+    (K3 + K4) against the plain sequential walk on the card, bit for
+    bit."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    rows = []
+    for n in STREAM_GAIN_N:
+        m, _ = _p2_random(n, n)
+        init = torch.tensor([0.0, 1.5, 6.0], device=m.device)
+        want = pg._gain_scan(m.T.contiguous(), ia, ir, init).T
+        _zero_counts()
+        att_j, ok, sweeps = pg._jacobi(m, init, ia, ir)
+        att_t = pg._two_pass(m, init, ia, ir)
+        counts = _read_counts()
+        err_t = (att_t - want).abs().max().item()
+        err_j = max([(att_j[g] - want[g]).abs().max().item()
+                     for g in range(3) if ok[g]], default=0.0)
+        print(f"gain kernels at n = {n}: K2 {counts['gain_jacobi']} sweeps "
+              f"launched, converged {ok}, vs walk {err_j:.3e}; K3 + K4 vs "
+              f"walk {err_t:.3e}")
+        if (err_t != 0.0 or err_j != 0.0 or counts["gain_jacobi"] < 1
+                or counts["gain_p1"] != 1 or counts["gain_p2"] != 1):
+            raise AssertionError(f"gain kernels at n = {n}: K2 {err_j}, "
+                                 f"K3 + K4 {err_t}, launches {counts}")
+        rows.append({"n": n, "converged": ok, "jacobi_launches":
+                     counts["gain_jacobi"], "max_abs_err": max(err_t, err_j)})
+    return rows
+
+
+def _wedge_spy():
+    """A context that records every K1 launch made through the limiter
+    module (depths, pieces, direction, the kernel's envelope)."""
+    from unittest import mock
+
+    from ame_tpu_torch.ops import limiter
+    real, calls = limiter.wedge_env_cuda, []
+
+    def spy(dep, pieces, reverse):
+        env = real(dep, pieces, reverse)
+        calls.append((dep.clone(), pieces, reverse, env))
+        return env
+    return mock.patch.object(limiter, "wedge_env_cuda", spy), calls
+
+
+def _compat_stream_check(name: str, x_np: np.ndarray, push: int) -> dict:
+    """x through StreamingCompatMaster in `push`-sample pieces on the card
+    against the offline chunked compat chain (master_graph, lufs off) on
+    the card: tests/test_streaming.py:203-206's bounds (max <= 8/32768,
+    99.9th percentile <= 1/32768 + 1e-6, median 0). Every K1 launch is
+    held against its plain version (1e-5)."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.ops.wedge_env import wedge_env_plain
+    from ame_tpu_torch.streaming import StreamingCompatMaster
+    settings = MasterSettings(**COMPAT_STREAM)
+    want = master_graph(torch.from_numpy(x_np).cuda(), SR,
+                        settings)[0].cpu().numpy()
+    sm = StreamingCompatMaster(SR, settings, device="cuda")
+    patch, calls = _wedge_spy()
+    _zero_counts()
+    with patch:
+        got = _stream(sm, x_np, push)
+    counts = _read_counts()
+    k1_err = max(((env - wedge_env_plain(dep, pieces, rev)).abs().max()
+                  .item() for dep, pieces, rev, env in calls), default=0.0)
+    k1_lengths = [int(c[0].shape[0]) for c in calls]
+    del calls
+    blocks = -(-x_np.shape[0] // sm.block_len)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: emitted {got.shape}, offline "
+                             f"{want.shape}")
+    err = np.abs(got - want)
+    stats = {"max": float(err.max()), "q999": float(np.quantile(err, 0.999)),
+             "median": float(np.median(err))}
+    print(f"{name}: [{x_np.shape[0]}, 2] in {blocks} blocks, pushes of "
+          f"{push}: vs offline chunked max {stats['max'] / LSB:.3f} LSB, "
+          f"99.9th {stats['q999'] / LSB:.3f} LSB, median {stats['median']}; "
+          f"launches {json.dumps(counts)}; K1 lengths {k1_lengths}, vs "
+          f"plain {k1_err:.3e}")
+    if not (stats["max"] <= 8 * LSB and stats["q999"] <= LSB + 1e-6
+            and stats["median"] == 0.0):
+        raise AssertionError(f"{name}: vs offline {stats}")
+    if not k1_err <= WEDGE_TOL:
+        raise AssertionError(f"{name}: K1 vs plain {k1_err}")
+    return {"counts": counts, "blocks": blocks, "err": stats,
+            "k1_max_abs_err": k1_err, "k1_lengths": k1_lengths}
+
+
+def _stream_compat(tmp: str) -> dict:
+    """(c) The compat input's 2^23 track pushed in 100 000-sample pieces
+    (gain 0, multiband): held to the offline chunked chain; per block one
+    K1 launch (reverse), six K5, at least one K2, no K2 reset route. Then
+    steady 0.5 noise (K3 and K4 must launch), and remainders of 1 and 31
+    samples after one block, each held to the offline chain; the compat
+    stream's host time a 30 s block."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.streaming import StreamingCompatMaster
+    _, pcm, _ = _compat_x(tmp)
+    x_np = pcm.astype(np.float32) / 32768.0
+    main = _compat_stream_check("stream_compat", x_np, STREAM_PUSH)
+    c, blocks = main["counts"], main["blocks"]
+    if (c["wedge_env"] != blocks or c["cascade_scan"] != 6 * blocks
+            or c["gain_jacobi"] < blocks or c["gain_jacobi_resets"] != 0
+            or c["gain_p1_resets"] != 0):
+        raise AssertionError(f"stream_compat launches {c}: expected {blocks}"
+                             f" wedge_env, {6 * blocks} cascade_scan, at "
+                             f"least {blocks} gain_jacobi, no reset route")
+    settings = MasterSettings(**COMPAT_STREAM)
+
+    def timed():
+        sm = StreamingCompatMaster(SR, settings, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _stream(sm, x_np, STREAM_PUSH)
+        return time.perf_counter() - t0, out
+    secs = float(np.median([timed()[0] for _ in range(REPS)]))
+    block_ms = secs / blocks * 1e3
+    print(f"stream_compat: {secs:.3f} s for {blocks} blocks = "
+          f"{block_ms:.2f} ms a 30 s block ({N_STREAM / SR / secs:.1f}x "
+          f"realtime)")
+
+    _, x_steady = _steady_x(tmp)
+    steady_np = x_steady.cpu().numpy()
+    sm = StreamingCompatMaster(SR, settings, device="cuda")
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = _stream(sm, steady_np, STREAM_PUSH)
+    steady_s = time.perf_counter() - t0
+    steady = _read_counts()
+    peak = float(np.abs(out).max())
+    print(f"stream_compat_steady: launches {json.dumps(steady)}; "
+          f"{steady_s:.3f} s; peak {peak:.6f}")
+    if (steady["gain_p1"] < 1 or steady["gain_p2"] < 1
+            or out.shape != steady_np.shape or not np.isfinite(out).all()
+            or peak > 1.0 + 1e-5):
+        raise AssertionError(f"stream_compat_steady: launches {steady}, "
+                             f"shape {out.shape}, peak {peak}")
+    tails = {t: _compat_stream_check(f"stream_compat_tail{t}",
+                                     x_np[:CHUNK_LEN + t], STREAM_PUSH)
+             for t in STREAM_TAILS}
+    return {"main": main, "seconds": secs, "ms_per_block": block_ms,
+            "steady": {"counts": steady, "seconds": steady_s, "peak": peak},
+            "tails": tails, "gain_tails": _stream_gain_tails()}
+
+
+def _bench_block(settings: dict, block: int) -> dict:
+    """benchmarks/bench_streaming.py's measurement on the card: a fresh
+    StreamingMaster at 48 kHz, eight device chunks of 0.1 N(0,1), 3 warm
+    blocks, then BENCH_REPS blocks on the host clock (each block ends in
+    its one fetch); with the launches per block."""
+    from ame_tpu_torch.streaming import StreamingMaster
+    sm = StreamingMaster(BENCH_SR, settings, gain_db=BENCH_GAIN_DB,
+                         device="cuda")
+    rng = np.random.default_rng(0)
+    chunks = [torch.from_numpy((0.1 * rng.standard_normal((block, 2)))
+                               .astype(np.float32)).cuda() for _ in range(8)]
+    for c in chunks[:BENCH_WARM]:
+        sm.process(c)
+    _zero_counts()
+    t0 = time.perf_counter()
+    for i in range(BENCH_REPS):
+        sm.process(chunks[i % len(chunks)])
+    ms = (time.perf_counter() - t0) / BENCH_REPS * 1e3
+    counts = _read_counts()
+    block_ms = block / BENCH_SR * 1e3
+    return {"block": block, "ms_per_block": ms,
+            "block_ms_of_audio": block_ms, "x_realtime": block_ms / ms,
+            "algorithmic_latency_ms": sm.latency_samples / BENCH_SR * 1e3,
+            "launches_per_block": {k: v / BENCH_REPS
+                                   for k, v in counts.items() if v}}
+
+
+def _profile_stream() -> dict:
+    """The 4096-block streams' busy time and idle share, from torch.profiler
+    in a process of its own (one that ran no plain gain walk)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--streaming-profile"], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"streaming profile failed: {r.stderr}")
+    lines = r.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1])
+
+
+def streaming_profile() -> int:
+    """``--streaming-profile``: for each bench path at blocks of 4096 (48
+    kHz), the host ms a block over PROFILE_BLOCKS blocks, then the device
+    time of as many blocks under torch.profiler: busy ms a block and the
+    idle share of the block's time; prints one JSON line."""
+    from ame_tpu_torch.streaming import StreamingMaster
+    out = {}
+    for name, settings in BENCH_PATHS.items():
+        sm = StreamingMaster(BENCH_SR, settings, gain_db=BENCH_GAIN_DB,
+                             device="cuda")
+        rng = np.random.default_rng(0)
+        chunks = [torch.from_numpy((0.1 * rng.standard_normal((4096, 2)))
+                                   .astype(np.float32)).cuda()
+                  for _ in range(8)]
+        it = iter(range(10 ** 9))
+
+        def step():
+            sm.process(chunks[next(it) % len(chunks)])
+        for _ in range(BENCH_WARM):
+            step()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_BLOCKS):
+            step()
+        ms = (time.perf_counter() - t0) / PROFILE_BLOCKS * 1e3
+        per_kernel = _profile(step, PROFILE_BLOCKS)
+        busy = sum(t for t, _ in per_kernel.values()) / PROFILE_BLOCKS
+        records = sum(k for _, k in per_kernel.values()) / PROFILE_BLOCKS
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:5]
+        out[name] = {"ms_per_block": ms, "busy_ms_per_block": busy,
+                     "idle_share": 1.0 - busy / ms,
+                     "device_records_per_block": records,
+                     "top": [(k[:60], t / PROFILE_BLOCKS) for k, (t, _)
+                             in top]}
+        print(f"stream {name} at 4096 (48 kHz): {ms:.4f} ms a block, busy "
+              f"{busy:.4f} ms (idle share {1.0 - busy / ms:.3f}), "
+              f"{records:.1f} device records a block; top (ms a block): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in out[name]["top"]))
+    print(json.dumps(out))
+    return 0
+
+
+def _stream_latency() -> dict:
+    """(d) Block latency as benchmarks/bench_streaming.py measures it, for
+    quality plain, 3-band and 16-band, with launches per block; host us a
+    sosfilt_cuda call at 4096; busy time and idle share at 4096."""
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    lines = {}
+    for name, settings in BENCH_PATHS.items():
+        lines[name] = []
+        for block in BENCH_BLOCKS:
+            r = _bench_block(settings, block)
+            print(json.dumps({"bench_streaming": name, **r}))
+            lines[name].append(r)
+    sos = _quality_cascades()["eq_k4"]
+    x, pre = _noise_input(STREAM_BLOCK, 2, 7)
+    zi = torch.zeros((sos.shape[0], 2, 2), dtype=torch.float32,
+                     device=x.device)
+    host_us = _host_us(lambda: sosfilt_cuda(sos, x, zi), BENCH_REPS)
+    print(f"sosfilt_cuda host time a call at [{STREAM_BLOCK}, 2]: "
+          f"{host_us:.1f} us")
+    return {"bench": lines, "sosfilt_cuda_host_us": host_us,
+            "profile_4096": _profile_stream()}
+
+
+def phase_streaming(tmp: str) -> dict:
+    """Phase 12: (a) the quality streams, (b) K5 and K1 at stream shapes,
+    (c) the compat streams, (d) block latency."""
+    quality = _stream_quality()
+    k5 = _stream_k5()
+    k1 = _stream_k1()
+    compat = _stream_compat(tmp)
+    latency = _stream_latency()
+    return {"quality": quality, "k5": k5, "k1": k1, "compat": compat,
+            "latency": latency}
+
+
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
     (checked against plain, timed, split by launch) and, where the package
@@ -1951,13 +2462,18 @@ def main() -> int:
         phase_compat_parity(chunked.pop("pcm"), COMPAT_CHUNKED,
                             N_CHUNK_PARITY, "compat_chunked")
         mus = phase_musicologist(tmp)
+        stream = phase_streaming(tmp)
+    sq, sc = stream["quality"], stream["compat"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"],
              "compat_chunked": chunked["counts"],
              "compat_chunked_fallback": chunked_fb["counts"],
              "quality_mb": mb["mb3"]["counts"],
              "quality_mb16": mb["mb16"]["counts"],
-             "musicologist": mus["song_counts"]}
+             "musicologist": mus["song_counts"],
+             **{p: r["counts"] for p, r in sq.items()},
+             "stream_compat": sc["main"]["counts"],
+             "stream_compat_steady": sc["steady"]["counts"]}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -1976,7 +2492,9 @@ def main() -> int:
               "ame_tpu/ops/pallas_scan.py:65", "quality",
               max(max(max(r["max_abs_err_y"], r["max_abs_err_zf"])
                       for r in rows),
-                  max(r["max_abs_err"] for r in chunk_rows + mb_rows)),
+                  max(r["max_abs_err"] for r in chunk_rows + mb_rows
+                      + stream["k5"]["rows"]),
+                  stream["k5"]["chain"]["max_abs_err"]),
               sum(r["ms"] for r in quality),
               sum(r["plain_ms"] for r in quality),
               (sum(r["bound_ms"] for r in quality), "bytes"),
@@ -1984,17 +2502,22 @@ def main() -> int:
                    "cascades together; multiband_stage_totals: the K5 "
                    "launches of one master's multiband stage together",
               per_cascade=rows, chunk_columns=chunk_rows,
-              quality_multiband=mb_rows,
+              quality_multiband=mb_rows, streaming=stream["k5"],
               multiband_stage_totals={
                   p: {key: sum(r[key] * r["uses"].get(p, 0)
                                for r in mb_rows)
                       for key in ("ms", "plain_ms", "bound_ms")}
                   for p in ("quality_mb", "quality_mb16")}),
         entry("wedge_env", csrc + "wedge_env.cu",
-              "ame_tpu/ops/limiter.py:114", "compat", wedge["max_abs_err"],
+              "ame_tpu/ops/limiter.py:114", "compat",
+              max([wedge["max_abs_err"]] + [r["max_abs_err"]
+                                            for r in stream["k1"]]
+                  + [c["k1_max_abs_err"] for c in [sc["main"]]
+                     + list(sc["tails"].values())]),
               wedge["ms"], wedge["plain_ms"], wedge["bound"],
               n=N_KERNEL, note="both directions",
-              one_call_ms=wedge["one_call_ms"], phase_ms=wedge["phase_ms"]),
+              one_call_ms=wedge["one_call_ms"], phase_ms=wedge["phase_ms"],
+              streaming_reverse=stream["k1"]),
     ]
     reset = gain["reset"]
     for name, line in (("gain_jacobi", 307), ("gain_p1", 140),
@@ -2043,6 +2566,9 @@ def main() -> int:
     print(json.dumps({"chains": chains}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"musicologist": mus}))
+    print(json.dumps({"streaming": {
+        "quality": sq, "k5_chain": stream["k5"]["chain"],
+        "compat": sc, "latency": stream["latency"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -2052,6 +2578,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--musicologist-profile"]:
         sys.exit(musicologist_profile())
+    if sys.argv[1:2] == ["--streaming-profile"]:
+        sys.exit(streaming_profile())
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else
                               os.path.dirname(os.path.abspath(__file__))))

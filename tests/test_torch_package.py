@@ -38,6 +38,41 @@ def test_port_never_imports_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_streaming_imports_no_jax():
+    """The streaming module, and the streamers through the package's lazy
+    export, pull in neither jax nor ame_tpu."""
+    code = ("import sys\n"
+            "import ame_tpu_torch\n"
+            "assert 'ame_tpu_torch.streaming' not in sys.modules\n"
+            "cls = ame_tpu_torch.StreamingMaster\n"
+            "from ame_tpu_torch.streaming import StreamingMaster, "
+            "StreamingCompatMaster\n"
+            "assert cls is StreamingMaster\n"
+            "assert ame_tpu_torch.StreamingCompatMaster is "
+            "StreamingCompatMaster\n"
+            "for name in ('jax', 'ame_tpu'):\n"
+            "    assert name not in sys.modules, name\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("name", ["StreamingMaster", "StreamingCompatMaster"])
+def test_streamers_raise_without_card(name, monkeypatch):
+    """A streamer asked for the card (the default) on a machine without one
+    raises; it never falls back to the CPU."""
+    import ame_tpu_torch
+    cls = getattr(ame_tpu_torch, name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(44100, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(44100, {}, device="cuda")
+    assert cls(44100, {}, device="cpu").latency_samples > 0
+    with pytest.raises(AttributeError):
+        ame_tpu_torch.NotAStreamer
+
+
 def test_precision_turns_tf32_off():
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
