@@ -16,7 +16,12 @@ NVIDIA card (or on the CPU through the plain PyTorch versions):
     a block is one K5 launch) and ``StreamingCompatMaster`` (30 s compat
     blocks, the compat limiter continuous across them), on
     ``device="cuda"`` by default or ``device="cpu"``;
-    ``convert.streaming_state`` takes an ``ame_tpu`` streamer's state over.
+    ``convert.streaming_state`` takes an ``ame_tpu`` streamer's state over;
+  * fitting and training (``models/``): ``automaster.fit_settings`` (the
+    quality sub-chain's settings by Adam; on the card every cascade runs
+    K5 with a backward of two more kernels, K5 in reverse and
+    ``csrc/sos_grad.cu``) and ``train_mood`` (the mood CNN's training
+    loop with checkpoints, writing weights both packages load).
 
 MP3 export, art generation and the front ends are still to be ported
 (ROADMAP.md).

@@ -6,7 +6,10 @@ state (``zi``/``zf`` keep scipy's [k, C, 2] layout on both sides, so either
 side's state can be handed to the other as a numpy array);
 ``streaming_state`` moves a streamer's carried state across. The mood CNN's
 trained weights are a flax tree; ``mood_cnn_state_dict`` turns it into the
-port's ``MoodCNN`` state dict.
+port's ``MoodCNN`` state dict and ``mood_cnn_params`` turns it back. For
+training and fitting, ``automaster_theta`` and ``adam_state`` carry an
+``ame_tpu`` fit's parameters and optax Adam state over to the port's
+tensors and ``torch.optim.Adam``.
 """
 
 from __future__ import annotations
@@ -92,4 +95,59 @@ def mood_cnn_state_dict(params: dict) -> dict:
         layer = params[f"Dense_{j}"]
         out[f"dense{j}.weight"] = t(np.transpose(layer["kernel"]))
         out[f"dense{j}.bias"] = t(layer["bias"])
+    return out
+
+
+def mood_cnn_params(state_dict: dict) -> dict:
+    """The inverse of ``mood_cnn_state_dict``: a ``MoodCNN`` state dict ->
+    the flax tree as float32 numpy (``{"Conv_i": {"kernel", "bias"},
+    "Dense_j": {...}}``, in flax's order, so ``models/_msgpack.dump``
+    writes flax's bytes)."""
+    def a(name):
+        return state_dict[name].detach().to("cpu", torch.float32).numpy()
+
+    out = {}
+    for i in range(3):
+        out[f"Conv_{i}"] = {
+            "kernel": np.ascontiguousarray(
+                np.transpose(a(f"convs.{i}.weight"), (2, 3, 1, 0))),
+            "bias": a(f"convs.{i}.bias")}
+    for j in range(2):
+        out[f"Dense_{j}"] = {
+            "kernel": np.ascontiguousarray(np.transpose(a(f"dense{j}.weight"))),
+            "bias": a(f"dense{j}.bias")}
+    return out
+
+
+def automaster_theta(theta, device="cpu") -> dict:
+    """An ``ame_tpu.models.automaster`` theta (dict of jax or numpy arrays)
+    -> the port's: float32 leaf tensors on ``device`` that require grad, in
+    the port's key order (``models/automaster.init_theta``)."""
+    order = ("analog_raw", "width_raw", "eq_raw", "mb_thresh_raw",
+             "mb_ratio_raw")
+    extra = set(theta) - set(order)
+    if extra:
+        raise ValueError(f"not an automaster theta: {sorted(extra)}")
+    return {k: torch.tensor(np.asarray(theta[k], np.float32), device=device,
+                            requires_grad=True)
+            for k in order if k in theta}
+
+
+def adam_state(opt_state, params: dict) -> dict:
+    """optax ``adam``'s state (a tuple whose first element is the
+    ``ScaleByAdamState`` (count, mu, nu), mu and nu trees keyed like
+    ``params``) -> ``torch.optim.Adam`` per-parameter state, keyed by the
+    port's parameter tensors: ``opt.state.update(adam_state(s, theta))``
+    continues the optax run. The update rules agree: optax's
+    lr * mu_hat / (sqrt(nu_hat) + eps) is Adam's with its defaults."""
+    adam = opt_state[0] if isinstance(opt_state, (tuple, list)) else opt_state
+    count = int(np.asarray(adam.count))
+    out = {}
+    for name, p in params.items():
+        out[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.tensor(np.asarray(adam.mu[name], np.float32),
+                                    device=p.device),
+            "exp_avg_sq": torch.tensor(np.asarray(adam.nu[name], np.float32),
+                                       device=p.device)}
     return out

@@ -56,6 +56,16 @@
 //
 // Layouts: x, y are [n, C] row-major (sample-major, as the public function);
 // zi, zf are scipy layout [k, C, 2].
+//
+// REVERSE (cascade_scan_reverse_f32): the same three launches on the
+// sequence read backward. Virtual sample t is physical sample n-1-t: the
+// tile copies read and write x and y at n-1-t, and everything between
+// them (walks, scans, carries) is the forward code unchanged, so the
+// recurrence starts from zi (zero for the adjoint) after the last sample
+// and zf is the state after sample 0. This is the adjoint of a cascade
+// (ops/scan_iir.py::SosfiltFn): the transpose of a causal LTI filter is
+// the same filter run backward in time. The forward instantiation
+// (REVERSE = false) compiles to the code it was before.
 
 #include <cuda_runtime.h>
 
@@ -169,14 +179,17 @@ __device__ __forceinline__ Tile tile_of(int C, int CB, int logP) {
 // tile[q*PS + (tt/SUB)*(SUB+1) + tt%SUB]. Thread tid copies channel
 // tid % CB at samples tid/CB + i*P, i < SUB: consecutive threads take
 // consecutive addresses of x.
+// With REVERSE, tile sample tt is physical sample n-1-(t0+tt).
+template <bool REVERSE>
 __device__ __forceinline__ void tile_copy_in(float* tile, const float* x,
                                              long long n, int C,
                                              const Tile& g) {
   const int q = threadIdx.x % g.CB, tt0 = threadIdx.x / g.CB;
   float* dst = tile + q * g.PS + (tt0 / SUB) * (SUB + 1) + tt0 % SUB;
   const int dstep = (g.P / SUB) * (SUB + 1);
-  const float* src = x + (g.t0 + tt0) * C + g.c0 + q;
-  const long long sstep = (long long)g.P * C;
+  const long long t = REVERSE ? n - 1 - (g.t0 + tt0) : g.t0 + tt0;
+  const float* src = x + t * C + g.c0 + q;
+  const long long sstep = REVERSE ? -(long long)g.P * C : (long long)g.P * C;
   const bool qv = q < g.cb;
 #pragma unroll 8
   for (int i = 0; i < SUB; ++i) {
@@ -185,6 +198,7 @@ __device__ __forceinline__ void tile_copy_in(float* tile, const float* x,
   }
 }
 
+template <bool REVERSE>
 __device__ __forceinline__ void tile_copy_out(float* y, const float* tile,
                                               long long n, int C,
                                               const Tile& g) {
@@ -192,14 +206,15 @@ __device__ __forceinline__ void tile_copy_out(float* y, const float* tile,
   if (q >= g.cb) return;
   const float* s = tile + q * g.PS + (tt0 / SUB) * (SUB + 1) + tt0 % SUB;
   const int sstep = (g.P / SUB) * (SUB + 1);
-  float* dst = y + (g.t0 + tt0) * C + g.c0 + q;
-  const long long dstep = (long long)g.P * C;
+  const long long t = REVERSE ? n - 1 - (g.t0 + tt0) : g.t0 + tt0;
+  float* dst = y + t * C + g.c0 + q;
+  const long long dstep = REVERSE ? -(long long)g.P * C : (long long)g.P * C;
 #pragma unroll 8
   for (int i = 0; i < SUB; ++i)
     if (g.t0 + tt0 + (long long)i * g.P < n) dst[i * dstep] = s[i * sstep];
 }
 
-template <int K>
+template <int K, bool REVERSE>
 __global__ void __launch_bounds__(MAX_THREADS)
     cascade_ends(const float* __restrict__ x, float* __restrict__ S,
                  float* __restrict__ E, const float* __restrict__ pw,
@@ -210,7 +225,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const Tile g = tile_of(C, CB, logP);
   float* pws = sm;                       // A^(SUB*2^l), l < logP
   float* tile = sm + logP * D * D;
-  tile_copy_in(tile, x, n, C, g);
+  tile_copy_in<REVERSE>(tile, x, n, C, g);
   for (int i = threadIdx.x; i < logP * D * D; i += blockDim.x) pws[i] = pw[i];
   cp_async_wait_all();
   __syncthreads();
@@ -346,7 +361,7 @@ __global__ void __launch_bounds__(CARRY_THREADS)
   }
 }
 
-template <int K>
+template <int K, bool REVERSE>
 __global__ void __launch_bounds__(MAX_THREADS)
     cascade_outputs(const float* __restrict__ x, const float* __restrict__ S,
                     const float* __restrict__ cst, float* __restrict__ y,
@@ -358,7 +373,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const Tile g = tile_of(C, CB, logP);
   float* pws = sm;
   float* tile = sm + logP * D * D;
-  tile_copy_in(tile, x, n, C, g);
+  tile_copy_in<REVERSE>(tile, x, n, C, g);
   for (int i = threadIdx.x; i < logP * D * D; i += blockDim.x) pws[i] = pw[i];
   __syncthreads();
 
@@ -401,10 +416,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
   }
   __syncthreads();
-  tile_copy_out(y, tile, n, C, g);
+  tile_copy_out<REVERSE>(y, tile, n, C, g);
 }
 
-template <int K>
+template <int K, bool REVERSE>
 static int launch(const float* x, float* y, const float* zi, float* zf,
                   float* S, float* E, float* cst, const float* pw,
                   long long n, int C, int CB, int logP, const Params& p,
@@ -419,21 +434,23 @@ static int launch(const float* x, float* y, const float* zi, float* zf,
   if (smem > smem_set) {
     cudaError_t err;
     if ((err = cudaFuncSetAttribute(
-             cascade_ends<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             cascade_ends<K, REVERSE>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
              (int)smem)) != cudaSuccess ||
         (err = cudaFuncSetAttribute(
-             cascade_outputs<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             cascade_outputs<K, REVERSE>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
              (int)smem)) != cudaSuccess)
       return (int)err;
     smem_set = smem;
   }
   const dim3 grid((unsigned)nb, (unsigned)groups);
-  cascade_ends<K><<<grid, P * CB, smem, stream>>>(x, S, E, pw, n, C, CB, logP,
-                                                  p);
+  cascade_ends<K, REVERSE><<<grid, P * CB, smem, stream>>>(x, S, E, pw, n, C,
+                                                           CB, logP, p);
   cascade_carries<K><<<C, CARRY_THREADS, 0, stream>>>(
       E, zi, cst, pw + logP * D * D, nb, C, p);
-  cascade_outputs<K><<<grid, P * CB, smem, stream>>>(x, S, cst, y, zf, pw, n,
-                                                     C, CB, logP, p);
+  cascade_outputs<K, REVERSE><<<grid, P * CB, smem, stream>>>(
+      x, S, cst, y, zf, pw, n, C, CB, logP, p);
   return (int)cudaGetLastError();
 }
 
@@ -446,11 +463,11 @@ static int launch(const float* x, float* y, const float* zi, float* zf,
 // 2^logP * CB <= MAX_THREADS). zi may be null (zero initial state).
 // Returns cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue for unsupported sizes.
-extern "C" int cascade_scan_f32(const float* x, float* y, const float* zi,
-                                float* zf, float* S, float* E, float* cst,
-                                const float* powers, long long n, int C,
-                                int k, int CB, int logP,
-                                const float* host_params, void* stream) {
+template <bool REVERSE>
+static int cascade_scan(const float* x, float* y, const float* zi, float* zf,
+                        float* S, float* E, float* cst, const float* powers,
+                        long long n, int C, int k, int CB, int logP,
+                        const float* host_params, void* stream) {
   const int P = 1 << logP;
   if (k < 1 || k > MAX_SECTIONS || n < 1 || C < 1 || CB < 1 || CB > 4 ||
       CB > C || logP < 0 || logP > 8 || P < SUB || P * CB > MAX_THREADS)
@@ -466,7 +483,7 @@ extern "C" int cascade_scan_f32(const float* x, float* y, const float* zi,
     for (int q = 0; q < 4; ++q) p.Vf[i][q] = hp[i * 4 + q];
   cudaStream_t s = (cudaStream_t)stream;
 #define CASCADE_LAUNCH(KK) \
-  launch<KK>(x, y, zi, zf, S, E, cst, powers, n, C, CB, logP, p, s)
+  launch<KK, REVERSE>(x, y, zi, zf, S, E, cst, powers, n, C, CB, logP, p, s)
   switch (k) {
     case 1: return CASCADE_LAUNCH(1);
     case 2: return CASCADE_LAUNCH(2);
@@ -478,6 +495,28 @@ extern "C" int cascade_scan_f32(const float* x, float* y, const float* zi,
     default: return CASCADE_LAUNCH(8);
   }
 #undef CASCADE_LAUNCH
+}
+
+extern "C" int cascade_scan_f32(const float* x, float* y, const float* zi,
+                                float* zf, float* S, float* E, float* cst,
+                                const float* powers, long long n, int C,
+                                int k, int CB, int logP,
+                                const float* host_params, void* stream) {
+  return cascade_scan<false>(x, y, zi, zf, S, E, cst, powers, n, C, k, CB,
+                             logP, host_params, stream);
+}
+
+// The same arguments; x is read and y written from sample n-1 down to 0,
+// and zf is the state after sample 0.
+extern "C" int cascade_scan_reverse_f32(const float* x, float* y,
+                                        const float* zi, float* zf, float* S,
+                                        float* E, float* cst,
+                                        const float* powers, long long n,
+                                        int C, int k, int CB, int logP,
+                                        const float* host_params,
+                                        void* stream) {
+  return cascade_scan<true>(x, y, zi, zf, S, E, cst, powers, n, C, k, CB,
+                            logP, host_params, stream);
 }
 
 extern "C" const char* cascade_scan_error(int code) {

@@ -16,7 +16,9 @@ Linkwitz-Riley LR4 crossovers that sum flat, f32 throughout, the quality
 compressor on all bands at once. Each band is one cascade straight off x
 (the reference's tile-conv bank form), one ``sosfilt`` a band; a band of a
 G-band tree has up to 2(G−1) sections, which ``sosfilt`` runs as pieces of
-at most 8.
+at most 8. The quality stages are differentiable in x and in tensor
+thresholds and ratios (``models/automaster.py``): the bands' fixed
+cascades then go through ``scan_iir.SosfiltFn`` on the card.
 """
 
 from __future__ import annotations

@@ -28,7 +28,16 @@ kept on the device per (cascade, tile), so nothing is uploaded per call.
 
 ``sosfilt_cuda`` launches the kernel for CUDA tensors and raises for any
 other; the plain PyTorch version is ``ops/tile_conv.sosfilt_tileconv``.
-``sosfilt_cuda.launches`` counts the calls that launched the kernel.
+``reverse=True`` runs the same recurrence from the last sample back (the
+kernel's REVERSE instantiation: the adjoint of the cascade, for
+``scan_iir.SosfiltFn``); its plain version is the tile-conv on the flipped
+input. ``sosfilt_cuda.launches`` counts the calls that launched the forward
+kernel, ``sosfilt_cuda.reverse_launches`` those of the reverse one.
+
+Coefficients given as a tensor (a fit's designs, new every step) are
+fetched with one ``.cpu()`` and their tables prepared for that call only,
+outside the caches, so they do not evict the fixed cascades' tables; the
+power table then goes up through pinned memory without a sync.
 """
 
 from __future__ import annotations
@@ -85,18 +94,20 @@ def _kernel_sections(sos: np.ndarray):
     return sec, Vf, Vi
 
 
-@functools.lru_cache(maxsize=256)
-def _kernel_params(sos_bytes: bytes, k: int) -> np.ndarray:
+def _params_np(sos: np.ndarray) -> np.ndarray:
     """float32 parameter block in the layout ``cascade_scan_f32`` reads:
     k rows (b0, bb1, bb2, a11, a12, a21, a22), Vi [k, 2, 2], Vf [k, 2, 2]."""
-    sos = np.frombuffer(sos_bytes, np.float64).reshape(k, 6)
     sec, Vf, Vi = _kernel_sections(sos)
     return np.concatenate([sec.ravel(), Vi.ravel(),
                            Vf.ravel()]).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=256)
-def _power_table(sos_bytes: bytes, k: int, logP: int) -> np.ndarray:
+def _kernel_params(sos_bytes: bytes, k: int) -> np.ndarray:
+    return _params_np(np.frombuffer(sos_bytes, np.float64).reshape(k, 6))
+
+
+def _powers_np(sos: np.ndarray, logP: int) -> np.ndarray:
     """float32 [logP + _LOG_CARRY + 1, 2k, 2k]: A^(SUB*2^l) for l < logP
     (the in-tile scan and start states), then A^(T*2^l) for
     l <= _LOG_CARRY, T = SUB*2^logP (the carry scan across tiles).
@@ -104,7 +115,6 @@ def _power_table(sos_bytes: bytes, k: int, logP: int) -> np.ndarray:
     A is the cascade of the f32-rounded section rows the kernel walks, in
     its basis, so each power continues exactly the recurrence the walks
     ran; the powers are squared in float64 and rounded to f32 once."""
-    sos = np.frombuffer(sos_bytes, np.float64).reshape(k, 6)
     sec = _kernel_sections(sos)[0].astype(np.float32)
     A = _compose_sections(sec)[0]
     out = []
@@ -115,6 +125,12 @@ def _power_table(sos_bytes: bytes, k: int, logP: int) -> np.ndarray:
             M = M @ M
     table = np.nan_to_num(np.stack(out), nan=0.0, posinf=0.0, neginf=0.0)
     return table.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _power_table(sos_bytes: bytes, k: int, logP: int) -> np.ndarray:
+    return _powers_np(np.frombuffer(sos_bytes, np.float64).reshape(k, 6),
+                      logP)
 
 
 @functools.lru_cache(maxsize=64)
@@ -132,22 +148,30 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_longlong] + [ctypes.c_int] * 4
         + [ctypes.c_void_p, ctypes.c_void_p])
     lib.cascade_scan_f32.restype = ctypes.c_int
+    lib.cascade_scan_reverse_f32.argtypes = lib.cascade_scan_f32.argtypes
+    lib.cascade_scan_reverse_f32.restype = ctypes.c_int
     lib.cascade_scan_error.argtypes = [ctypes.c_int]
     lib.cascade_scan_error.restype = ctypes.c_char_p
     return lib
 
 
-def sosfilt_cuda(sos, x: torch.Tensor, zi: torch.Tensor | None = None):
-    """Cascade filter on the card. sos: host [k, 6] (k <= 8); x: contiguous
-    [N, C] float32 CUDA tensor; zi: scipy layout [k, C, 2] on x's device or
-    None. Returns (y [N, C], zf [k, C, 2])."""
+def sosfilt_cuda(sos, x: torch.Tensor, zi: torch.Tensor | None = None,
+                 reverse: bool = False):
+    """Cascade filter on the card. sos: [k, 6] (k <= 8), host numpy (tables
+    cached) or a tensor (tables for this call only); x: contiguous [N, C]
+    float32 CUDA tensor; zi: scipy layout [k, C, 2] on x's device or None.
+    ``reverse``: filter from sample N-1 down to 0 (zi is then the state
+    after the last sample, zf the state after sample 0). Returns
+    (y [N, C], zf [k, C, 2])."""
     if not x.is_cuda:
         raise ValueError("sosfilt_cuda needs a CUDA tensor; CPU tensors go "
                          "through scan_iir.sosfilt (plain tile-conv)")
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"sosfilt_cuda needs a contiguous [N, C] float32 "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
-    sos64 = np.ascontiguousarray(np.asarray(sos, np.float64))
+    cached = not isinstance(sos, torch.Tensor)
+    sos64 = (np.ascontiguousarray(np.asarray(sos, np.float64)) if cached
+             else sos.detach().to("cpu", torch.float64).numpy())
     k = int(sos64.shape[0])
     if sos64.shape != (k, 6) or not 1 <= k <= _MAX_SECTIONS:
         raise ValueError(f"sos must be [k, 6] with 1 <= k <= {_MAX_SECTIONS},"
@@ -160,10 +184,15 @@ def sosfilt_cuda(sos, x: torch.Tensor, zi: torch.Tensor | None = None):
                            or not zi.is_contiguous()):
         raise ValueError(f"zi must be a contiguous float32 [{k}, {C}, 2] "
                          f"tensor on {x.device}")
-    key = sos64.tobytes()
     CB, logP = _geometry(C)
-    params = _kernel_params(key, k)
-    powers = _device_powers(key, k, logP, x.device)
+    if cached:
+        key = sos64.tobytes()
+        params = _kernel_params(key, k)
+        powers = _device_powers(key, k, logP, x.device)
+    else:
+        params = _params_np(sos64)
+        powers = torch.from_numpy(_powers_np(sos64, logP)).pin_memory().to(
+            x.device, non_blocking=True)
     lib = _lib()
     nb = -(-N // (_SUB << logP))
     D = 2 * k
@@ -179,15 +208,21 @@ def sosfilt_cuda(sos, x: torch.Tensor, zi: torch.Tensor | None = None):
     # the kernels launch on x's device (a no-op switch on the current one)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.cascade_scan_f32(
+        launch = (lib.cascade_scan_reverse_f32 if reverse
+                  else lib.cascade_scan_f32)
+        err = launch(
             x.data_ptr(), y.data_ptr(),
             None if zi is None else zi.data_ptr(), zf.data_ptr(), S, E, cst,
             powers.data_ptr(), N, C, k, CB, logP, params.ctypes.data, stream)
     if err != 0:
-        raise RuntimeError(f"cascade_scan_f32 launch failed: CUDA error "
+        raise RuntimeError(f"cascade_scan launch failed: CUDA error "
                            f"{err} ({lib.cascade_scan_error(err).decode()})")
-    sosfilt_cuda.launches += 1
+    if reverse:
+        sosfilt_cuda.reverse_launches += 1
+    else:
+        sosfilt_cuda.launches += 1
     return y, zf
 
 
 sosfilt_cuda.launches = 0
+sosfilt_cuda.reverse_launches = 0

@@ -161,7 +161,12 @@ def compress_quality_multi(bands, sample_rate: float, thresholds_db, ratios,
     and the attack smoother each run once on [N, G] (one attack and release
     for all bands; thresholds and ratios per band: G floats or a [G]
     tensor). The smoother is a k=1 cascade over the G columns. bands: list
-    of G [N, C]; returns the list of compressed bands."""
+    of G [N, C]; returns the list of compressed bands.
+
+    Differentiable in the bands and in tensor thresholds and ratios: the
+    level and the gain computer are torch ops, the release scan is a
+    (max, x) Kogge-Stone in torch ops, and the smoother goes through
+    ``sosfilt`` (``SosfiltFn`` on the card)."""
     G = len(bands)
     dt, dev = bands[0].dtype, bands[0].device
     rms_w = max(int(rms_ms * sample_rate / 1000.0), 1)

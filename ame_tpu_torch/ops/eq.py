@@ -17,7 +17,10 @@ Q6) runs the cores with their state reset every that many samples
 
 Quality half: ``apply_eq_quality`` with the RBJ closed forms of
 ``_rbj_shelf_coeffs_jnp`` / ``_rbj_peaking_coeffs_jnp``, designed in float64
-on the host (``dsp/design.rbj_*``) and run as one k=4 cascade.
+on the host (``dsp/design.rbj_*``) and run as one k=4 cascade. Tensor
+gains (a fit's parameters, ``models/automaster.py``) take the same closed
+forms in float32 torch ops instead (``_rbj_shelf_coeffs_t``,
+``_rbj_peaking_coeffs_t``), so the cascade is differentiable in them.
 """
 
 from __future__ import annotations
@@ -121,11 +124,78 @@ def eq_quality_sos(sample_rate: float, bass_db: float, mid_cut_db: float,
     ])
 
 
-def apply_eq_quality(x: torch.Tensor, sample_rate: float, bass_db: float,
-                     mid_cut_db: float, presence_db: float, treble_db: float,
+def _rbj_shelf_coeffs_t(f0: float, fs: float, gain_db: torch.Tensor,
+                        q: float, kind: str) -> torch.Tensor:
+    """RBJ low/high shelf [6] of a tensor gain, closed form in float32
+    torch ops (``ame_tpu/ops/eq.py::_rbj_shelf_coeffs_jnp``)."""
+    A = 10.0 ** (gain_db / 40.0)
+    w0 = 2.0 * np.pi * f0 / fs
+    cw = float(np.cos(w0))
+    alpha = float(np.sin(w0) / (2.0 * q))
+    sa = 2.0 * torch.sqrt(A) * alpha
+    if kind == "high":
+        b0 = A * ((A + 1) + (A - 1) * cw + sa)
+        b1 = -2 * A * ((A - 1) + (A + 1) * cw)
+        b2 = A * ((A + 1) + (A - 1) * cw - sa)
+        a0 = (A + 1) - (A - 1) * cw + sa
+        a1 = 2 * ((A - 1) - (A + 1) * cw)
+        a2 = (A + 1) - (A - 1) * cw - sa
+    else:
+        b0 = A * ((A + 1) - (A - 1) * cw + sa)
+        b1 = 2 * A * ((A - 1) - (A + 1) * cw)
+        b2 = A * ((A + 1) - (A - 1) * cw - sa)
+        a0 = (A + 1) + (A - 1) * cw + sa
+        a1 = -2 * ((A - 1) + (A + 1) * cw)
+        a2 = (A + 1) + (A - 1) * cw - sa
+    return torch.stack([b0 / a0, b1 / a0, b2 / a0, torch.ones_like(a0),
+                        a1 / a0, a2 / a0])
+
+
+def _rbj_peaking_coeffs_t(f0: float, fs: float, gain_db: torch.Tensor,
+                          q: float) -> torch.Tensor:
+    """RBJ peaking [6] of a tensor gain, closed form in float32 torch ops
+    (``ame_tpu/ops/eq.py::_rbj_peaking_coeffs_jnp``)."""
+    A = 10.0 ** (gain_db / 40.0)
+    w0 = 2.0 * np.pi * f0 / fs
+    cw = float(np.cos(w0))
+    alpha = float(np.sin(w0) / (2.0 * q))
+    b0 = 1 + alpha * A
+    b1 = -2 * cw * torch.ones_like(A)
+    b2 = 1 - alpha * A
+    a0 = 1 + alpha / A
+    a2 = 1 - alpha / A
+    return torch.stack([b0 / a0, b1 / a0, b2 / a0, torch.ones_like(a0),
+                        b1 / a0, a2 / a0])
+
+
+def eq_quality_sos_t(sample_rate: float, bass_db, mid_cut_db, presence_db,
+                     treble_db, peak_q: float = C.PEAK_Q) -> torch.Tensor:
+    """``eq_quality_sos`` of tensor gains: one float32 [4, 6] tensor."""
+    return torch.stack([
+        _rbj_shelf_coeffs_t(C.BASS_SHELF_HZ, sample_rate, bass_db, 0.7071,
+                            "low"),
+        _rbj_peaking_coeffs_t(C.MID_PEAK_HZ, sample_rate, -mid_cut_db,
+                              peak_q),
+        _rbj_peaking_coeffs_t(C.PRESENCE_PEAK_HZ, sample_rate, presence_db,
+                              peak_q),
+        _rbj_shelf_coeffs_t(C.TREBLE_SHELF_HZ, sample_rate, treble_db,
+                            0.7071, "high"),
+    ]).to(torch.float32)
+
+
+def apply_eq_quality(x: torch.Tensor, sample_rate: float, bass_db,
+                     mid_cut_db, presence_db, treble_db,
                      peak_q: float = C.PEAK_Q) -> torch.Tensor:
-    """Product-grade 4-band EQ over [N, C] audio, run as ONE k=4 cascade."""
-    sos = eq_quality_sos(sample_rate, bass_db, mid_cut_db, presence_db,
-                         treble_db, peak_q)
+    """Product-grade 4-band EQ over [N, C] audio, run as ONE k=4 cascade.
+    Float gains: the float64 host design. Any tensor gain: all four as
+    float32 tensors through the torch designs (differentiable)."""
+    gains = (bass_db, mid_cut_db, presence_db, treble_db)
+    if any(isinstance(g, torch.Tensor) for g in gains):
+        sos = eq_quality_sos_t(sample_rate, *(
+            torch.as_tensor(g, dtype=torch.float32, device=x.device)
+            for g in gains), peak_q=peak_q)
+    else:
+        sos = eq_quality_sos(sample_rate, bass_db, mid_cut_db, presence_db,
+                             treble_db, peak_q)
     y, _ = sosfilt(sos, x)
     return y

@@ -191,6 +191,9 @@ def _tp_tile_matrix() -> np.ndarray:
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and back. Differentiable: its backward rounds the
+    cotangent to bf16 too, as ``ame_tpu``'s ``astype`` pair does, so a
+    true-peak gradient agrees with the reference's to bf16's precision."""
     return t.to(torch.bfloat16).to(torch.float32)
 
 

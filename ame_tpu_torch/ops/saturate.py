@@ -7,6 +7,8 @@
              high (+1.5*percent/100 dB) — two k=1 Butterworth cores
              (their state reset every ``chunk_len`` samples when chunked)
     quality: RBJ low shelf 120 Hz -> RBJ high shelf 12 kHz, one k=2 cascade
+             (float64 host designs of a float percent; float32 torch designs,
+             differentiable, of a tensor percent)
 """
 
 from __future__ import annotations
@@ -41,9 +43,26 @@ def analog_sos(sample_rate: float, character_percent: float) -> np.ndarray:
     ])
 
 
+def analog_sos_t(sample_rate: float,
+                 character_percent: torch.Tensor) -> torch.Tensor:
+    """``analog_sos`` of a tensor percent: one float32 [2, 6] tensor."""
+    factor = character_percent / 100.0
+    return torch.stack([
+        eq._rbj_shelf_coeffs_t(C.ANALOG_LOW_SHELF_HZ, sample_rate,
+                               factor * 1.0, 0.7071, "low"),
+        eq._rbj_shelf_coeffs_t(C.ANALOG_HIGH_SHELF_HZ, sample_rate,
+                               factor * 1.5, 0.7071, "high"),
+    ]).to(torch.float32)
+
+
 def analog_character_quality(x: torch.Tensor, sample_rate: float,
-                             character_percent: float) -> torch.Tensor:
+                             character_percent) -> torch.Tensor:
+    """character_percent: a float (host design) or a tensor
+    (differentiable design)."""
     drive = 1.0 + character_percent / 100.0 * 0.5
     y = torch.tanh(x * drive)
-    y, _ = sosfilt(analog_sos(sample_rate, character_percent), y)
+    sos = (analog_sos_t(sample_rate, character_percent)
+           if isinstance(character_percent, torch.Tensor)
+           else analog_sos(sample_rate, character_percent))
+    y, _ = sosfilt(sos, y)
     return y

@@ -19,10 +19,11 @@ def stereo_width(x: torch.Tensor, width: float) -> torch.Tensor:
                        -1.0, 1.0)
 
 
-def stereo_width_quality(x: torch.Tensor, width: float) -> torch.Tensor:
+def stereo_width_quality(x: torch.Tensor, width) -> torch.Tensor:
     """x: [N, 2]. mid = (L+R)/2, side = (L-R)/2 * width, re-matrixed WITHOUT
     the reference's clip (engine:270): headroom is kept for the loudness
-    and limiter stages. Mono/ndim != 2 inputs pass through untouched."""
+    and limiter stages. Mono/ndim != 2 inputs pass through untouched.
+    width: a float or a 0-d tensor (differentiable)."""
     if x.ndim != 2 or x.shape[-1] != 2:
         return x
     left, right = x[:, 0], x[:, 1]

@@ -1,7 +1,8 @@
 """Tile-convolution cascade filter — the plain PyTorch version of the cascade.
 
 Port of ``ame_tpu/ops/tile_conv.py``: ``_tables_np``, ``_host_pack_cached``,
-``_host_partial_cached``, ``_carry_prefix_tiles`` and ``_tileconv_run``. It is
+``_host_partial_cached``, ``_carry_prefix_tiles``, ``_tileconv_run`` and
+``_traced_tables`` (the tables of a coefficient tensor). It is
 the reference the CUDA kernel (``ops/cascade_scan.py``) is held to: the CPU
 path of ``scan_iir.sosfilt`` runs it, and ``chip_smoke.py`` calls it directly
 on a CUDA tensor to compare with the kernel. It is never the main path on a
@@ -22,6 +23,12 @@ to f32; every product is a true-fp32 ``einsum`` (the chain turns TF32 off,
 ``ame_tpu_torch/precision.py``), so each output is a direct L-term dot
 product with ~1e-7 relative error against float64 scipy. Device copies of
 the tables are cached per (coefficients, device).
+
+A [k, 6] coefficient tensor (the quality designs of a tensor gain) builds
+the same tables in torch ops of its dtype instead (``_traced_tables``): A
+powers by doubling, no cache. That route is differentiable in the
+coefficients and in x, on either device; in float64 it is the arbiter the
+kernel backward (``scan_iir.SosfiltFn``) is held to.
 """
 
 from __future__ import annotations
@@ -32,8 +39,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ame_tpu_torch.ops.scan_iir import (_state_space_np, _zf_from_state,
-                                        _zi_to_state)
+from ame_tpu_torch.ops.scan_iir import (_cascade_state_space, _state_space_np,
+                                        _zf_from_state, _zi_to_state,
+                                        _zi_transforms)
 
 # Tile length (time samples per tile): H is [LB, LB].
 _LB = 128
@@ -164,24 +172,73 @@ def _tileconv_run(x, H, W, R, carry, Pc, Px, c0, N: int, Lb: int):
     return y.reshape(nb * Lb, C)[:N], zf_state
 
 
-def sosfilt_tileconv(sos: np.ndarray, x: torch.Tensor,
-                     zi: torch.Tensor | None = None):
-    """Cascade filter via the tile-conv tables. sos: host [k, 6];
-    x: [N, C] float32 on any device; zi: scipy layout [k, C, 2] or None.
-    Returns (y [N, C], zf [k, C, 2])."""
+def sosfilt_tileconv(sos, x: torch.Tensor, zi: torch.Tensor | None = None):
+    """Cascade filter via the tile-conv tables. sos: host [k, 6] (float64
+    tables, cached) or a [k, 6] tensor (tables in torch ops, differentiable);
+    x: [N, C] on any device (float32; a tensor sos also takes float64);
+    zi: scipy layout [k, C, 2] or None. Returns (y [N, C], zf [k, C, 2])."""
     N, C = x.shape
     if N == 0:
         raise ValueError("sosfilt_tileconv: empty input")
-    sos64 = np.ascontiguousarray(np.asarray(sos, np.float64))
-    k = int(sos64.shape[0])
     Lb = _LB
     nb = -(-N // Lb)
     ki = (N - 1) % Lb
-    key = (sos64.tobytes(), k, Lb)
-    H, W, R, carry, Vf, Vi = _device_pack(*key, x.device)
-    Pc, Px = _device_partial(*key, ki, x.device)
+    if isinstance(sos, torch.Tensor):
+        k = int(sos.shape[0])
+        H, W, R, carry, Pc, Px, Vf, Vi = _traced_tables(
+            sos.to(device=x.device, dtype=x.dtype), Lb, ki,
+            max(int(nb - 1).bit_length(), 1))
+    else:
+        sos64 = np.ascontiguousarray(np.asarray(sos, np.float64))
+        k = int(sos64.shape[0])
+        key = (sos64.tobytes(), k, Lb)
+        H, W, R, carry, Vf, Vi = _device_pack(*key, x.device)
+        Pc, Px = _device_partial(*key, ki, x.device)
     xp = F.pad(x, (0, 0, 0, nb * Lb - N))
     c0 = (x.new_zeros((2 * k, C)) if zi is None
           else _zi_to_state(zi.to(x.dtype), Vi))
     y, zf_state = _tileconv_run(xp, H, W, R, carry, Pc, Px, c0, N, Lb)
     return y, _zf_from_state(zf_state, Vf)
+
+
+# ---------------------------------------------------------------------------
+# Tables of a coefficient tensor
+# ---------------------------------------------------------------------------
+
+def _traced_tables(sos: torch.Tensor, Lb: int, ki: int, n_carry_levels: int):
+    """(H, W, R, carry, Pc, Px, Vf, Vi) of a [k, 6] tensor in torch ops of
+    its dtype (port of ``ame_tpu/ops/tile_conv.py::_traced_tables``): the
+    powers A^t, t < Lb, by log2(Lb) batched doublings, then the tables as
+    in ``_tables_np``, the carry levels A^(Lb*2^j) by squaring, and the
+    final-state tables of a track ending at within-tile offset ``ki``.
+    Squaring in float32 is fine for the quality designs, whose poles sit
+    well inside the unit circle."""
+    A, B, Crow, dpass = _cascade_state_space(sos)
+    Vi, Vf = _zi_transforms(sos)
+    D = A.shape[0]
+    eye = torch.eye(D, dtype=sos.dtype, device=sos.device)
+    idx = torch.arange(Lb, device=sos.device)
+    # A^t for t = 0 .. Lb-1 by doubling
+    T = torch.where((idx == 0)[:, None, None], eye[None], A[None])
+    shift = 1
+    while shift < Lb:
+        Ts = torch.cat([eye[None].expand(shift, D, D), T[:Lb - shift]])
+        T = torch.matmul(T, Ts)
+        shift *= 2
+    AL = T[Lb - 1] @ A                                    # A^Lb
+    h = torch.cat([dpass[None],
+                   torch.einsum("j,tjm,m->t", Crow, T[:Lb - 1], B)])
+    dif = idx[:, None] - idx[None, :]
+    H = torch.where(dif >= 0, h[torch.clamp(dif, 0, Lb - 1)],
+                    torch.zeros((), dtype=sos.dtype, device=sos.device))
+    W = torch.einsum("j,tjm->tm", Crow, T)                # [Lb, D]
+    R = torch.einsum("ujm,m->ju", torch.flip(T, [0]), B)  # [D, Lb]
+    carry = []
+    M = AL
+    for _ in range(n_carry_levels):
+        carry.append(M)
+        M = M @ M
+    Pc = T[ki] @ A                                        # A^(ki+1)
+    Pxt = torch.einsum("ujm,m->ju", T[torch.clamp(ki - idx, 0, Lb - 1)], B)
+    Px = torch.where((idx <= ki)[None, :], Pxt, torch.zeros_like(Pxt))
+    return H, W, R, torch.stack(carry), Pc, Px, Vf, Vi

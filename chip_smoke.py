@@ -8,8 +8,9 @@ it imports nothing of JAX or of the ame_tpu package. Phases, in order — any
 failure raises and the script exits non-zero without the final line:
 
   1. device: the card's name and nvidia-smi's name / power limit line;
-  2. build: compiles ame_tpu_torch/csrc/{cascade_scan,wedge_env,pydub_gain}.cu
-     from the checkout, one nvcc each, all started together; prints each
+  2. build: compiles ame_tpu_torch/csrc/{cascade_scan,wedge_env,pydub_gain,
+     sos_grad}.cu from the checkout, one nvcc each, all started together;
+     prints each
      kernel's registers and spills, and the opcodes in the hot loop of
      gain_p1's walker and of its floor kernel (cuobjdump -sass);
   3. K5 kernel vs plain: the ten main-path cascades (quality: analog
@@ -125,9 +126,32 @@ failure raises and the script exits non-zero without the final line:
      and 16-band, launches per block, host us a sosfilt_cuda call, and the
      busy time and idle share at 4096 under torch.profiler in a process of
      its own (``--streaming-profile``);
- 13. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
-     a {"musicologist": ...} line, a {"streaming": ...} line, then the last
-     line
+ 13. fitting (models/automaster.py): (a) K5's REVERSE direction on the ten
+     main-path cascades at [2^23 + 1234, 2] from zero state against flip ∘
+     plain ∘ flip (y and zf within 1e-4), timed beside the forward, with
+     its bound; (b) sos_grad against sos_grad_plain on [2^23 + 1234, 2]
+     (v and w the halves of one [N, 4] tensor), relative error within
+     1e-9 and the same bits twice, timed with its bound (3·N·C·4 bytes);
+     (c) dL/dtheta of _perceptual_loss on the phase-4 track with every
+     term on (multiband parameters, two FFT resolutions, band dynamics,
+     stereo field, true peak), through the kernels against every cascade
+     on the plain traced tile-conv on the card, within 1e-3 of each
+     leaf's largest entry; (d) fit_settings with those terms for 10
+     steps against a target made with +4 dB bass, -2 dB presence and
+     width 1.3: the loss falls, the bass gain rises, and K5 makes exactly
+     25 forward and 19 reverse launches and sos_grad 6 a step (plus the
+     target's and the final loss's forward launches), nothing else; a
+     step's time (CUDA events, host clock), the host time to prepare a
+     tensor sos's tables, and its busy time and idle share under
+     torch.profiler in a process of its own (``--fit-profile``);
+ 14. training (models/train_mood.py): synth_corpus.generate (4 classes x
+     8 tracks x 30 s), train_mood.main for 2 epochs at batch 32 with a
+     checkpoint directory, then to 3 epochs resumed from it: the loss is
+     finite and falls, three checkpoints, the written msgpack loads
+     through load_params, analyze_song runs on it; a step's time;
+ 15. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+     a {"musicologist": ...} line, a {"streaming": ...} line, a {"fit":
+     ...} line, a {"train": ...} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
@@ -151,6 +175,7 @@ to file). Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s f32.
 
 import concurrent.futures
 import json
+import logging
 import math
 import os
 import re
@@ -251,32 +276,44 @@ def _counters():
     from ame_tpu_torch.ops import pydub_gain as pg
     from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
     from ame_tpu_torch.ops.wedge_env import wedge_env_cuda
-    return {"wedge_env": wedge_env_cuda, "gain_jacobi": pg.gain_jacobi_cuda,
-            "gain_p1": pg.gain_p1_cuda, "gain_p2": pg.gain_p2_cuda,
-            "cascade_scan": sosfilt_cuda}
+    out = {"wedge_env": wedge_env_cuda, "gain_jacobi": pg.gain_jacobi_cuda,
+           "gain_p1": pg.gain_p1_cuda, "gain_p2": pg.gain_p2_cuda,
+           "cascade_scan": sosfilt_cuda}
+    try:                          # a tree from before the fit has no sos_grad
+        from ame_tpu_torch.ops.sos_grad import sos_grad_cuda
+        out["sos_grad"] = sos_grad_cuda
+    except ImportError:
+        pass
+    return out
 
 
 def _reset_counters() -> dict:
-    """The launches of K2's reset route and of K3 with flags (within
-    gain_jacobi's and gain_p1's counts), where the package counts them."""
+    """The counts kept under other names than ``launches``, where the
+    package keeps them: K2's reset route and K3 with flags (within
+    gain_jacobi's and gain_p1's counts), and K5's reverse launches (apart
+    from its forward ones)."""
     from ame_tpu_torch.ops import pydub_gain as pg
-    return {k: fn for k, fn in (("gain_jacobi_resets", pg.gain_jacobi_cuda),
-                                ("gain_p1_resets", pg.gain_p1_cuda))
-            if hasattr(fn, "reset_launches")}
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    return {k: (fn, attr) for k, fn, attr in (
+        ("gain_jacobi_resets", pg.gain_jacobi_cuda, "reset_launches"),
+        ("gain_p1_resets", pg.gain_p1_cuda, "reset_launches"),
+        ("cascade_scan_reverse", sosfilt_cuda, "reverse_launches"))
+        if hasattr(fn, attr)}
 
 
 def _zero_counts() -> None:
     torch.cuda.synchronize()
     for fn in _counters().values():
         fn.launches = 0
-    for fn in _reset_counters().values():
-        fn.reset_launches = 0
+    for fn, attr in _reset_counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counts() -> dict:
     torch.cuda.synchronize()
     return {**{k: fn.launches for k, fn in _counters().items()},
-            **{k: fn.reset_launches for k, fn in _reset_counters().items()}}
+            **{k: getattr(fn, attr)
+               for k, (fn, attr) in _reset_counters().items()}}
 
 
 def phase_device() -> str:
@@ -293,7 +330,9 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     from ame_tpu_torch.ops import _build
-    names = ("cascade_scan", "wedge_env", "pydub_gain")
+    names = tuple(n for n in ("cascade_scan", "wedge_env", "pydub_gain",
+                              "sos_grad")
+                  if (_build._CSRC / f"{n}.cu").exists())
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(_build.build, names))
     for info in infos:
@@ -2348,6 +2387,385 @@ def phase_streaming(tmp: str) -> dict:
             "latency": latency}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: fitting (models/automaster.py) on K5, its reverse and sos_grad
+# ---------------------------------------------------------------------------
+REVERSE_TOL = KERNEL_TOL
+SOS_GRAD_TOL = 1e-9            # relative: the same f32 products, f64 sums
+FIT_GRAD_TOL = 1e-3            # of each leaf's largest entry (f32 routes)
+FIT_STEPS = 10
+FIT_PROFILE_STEPS = 5
+FIT_RES = (512, 2048)          # multi_resolution
+FIT_KW = dict(optimize_multiband=True, multi_resolution=True,
+              dynamics_weight=1.0, stereo_weight=1.0, true_peak_weight=1.0,
+              tp_target=-1.0)
+FIT_TARGET = dict(bass_boost=4.0, presence_boost=-2.0, width=1.3)
+FIT_THETA = {"analog_raw": -1.0, "width_raw": 0.2,
+             "eq_raw": [0.3, -0.2, 0.1, 0.25], "mb_thresh_raw": [0.1, -0.1,
+                                                                  0.0],
+             "mb_ratio_raw": [-2.0, -1.5, -1.0]}
+# K5 launches of one fit step with FIT_KW (the chain: analog shelves k=2
+# and EQ k=4 with tensor coefficients, then the 3-band split k=2, 4, 4 and
+# the smoother k=1 with fixed ones; the loss: the band split of the output
+# for the dynamics, of mid and of side for the stereo field). Forward: a
+# tensor-coefficient cascade of k sections makes 1 + (k - 1) + k, a fixed
+# one 1. Reverse: k for a tensor cascade (section by section), 1 for a
+# fixed one (the whole cascade). sos_grad: k for a tensor cascade.
+FIT_STEP_LAUNCHES = {"cascade_scan": 4 + 8 + 3 + 1 + 3 + 6,
+                     "cascade_scan_reverse": 2 + 4 + 3 + 1 + 3 + 6,
+                     "sos_grad": 2 + 4}
+# outside the steps: the target's statistics (dynamics 3, stereo field 6)
+# and the final loss without gradients (2 + 3 + 1 + 3 + 6, one each)
+FIT_OTHER_FORWARD = 9 + 15
+
+
+def _sos_grad_bound(n: int, c: int):
+    """g, v, w read once; 5 products and 5 adds a sample."""
+    return _bound(3 * n * c * 4, 10 * n * c)
+
+
+def _fit_reverse() -> list:
+    """(a) K5 REVERSE on the ten main-path cascades at [2^23 + 1234, 2]
+    from zero state against its plain version (the tile-conv on the
+    flipped input, flipped back), y and zf within 1e-4; times and bound."""
+    from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
+
+    def plain(sos, x):
+        y, zf = sosfilt_tileconv(sos, torch.flip(x, [0]))
+        return torch.flip(y, [0]), zf
+    x, _ = _noise_input(N_KERNEL, 2, 9)
+    rows = []
+    for name, sos in {**_quality_cascades(), **_compat_cascades()}.items():
+        y_k, zf_k = sosfilt_cuda(sos, x, reverse=True)
+        y_p, zf_p = plain(sos, x)
+        torch.cuda.synchronize()
+        err = max((y_k - y_p).abs().max().item(),
+                  (zf_k - zf_p).abs().max().item())
+        if not err <= REVERSE_TOL:
+            raise AssertionError(f"reverse {name}: kernel vs plain {err:.3e}"
+                                 f" > {REVERSE_TOL}")
+        del y_k, y_p
+        ms = _cuda_ms(lambda: sosfilt_cuda(sos, x, reverse=True),
+                      KERNEL_CALLS)
+        fwd_ms = _cuda_ms(lambda: sosfilt_cuda(sos, x), KERNEL_CALLS)
+        plain_ms = _cuda_ms(lambda: plain(sos, x))
+        k = int(np.asarray(sos).shape[0])
+        bound = _cascade_bound(k, N_KERNEL, 2)
+        rows.append({"cascade": name, "k": k, "max_abs_err": err, "ms": ms,
+                     "forward_ms": fwd_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_share": bound[0] / ms})
+        print(f"reverse {name} k={k}: err {err:.3e}; kernel {ms:.4f} ms "
+              f"({bound[0] / ms:.1%} of its bound; forward {fwd_ms:.4f} ms),"
+              f" plain {plain_ms:.4f} ms")
+    return rows
+
+
+def _fit_sos_grad() -> dict:
+    """(b) sos_grad against sos_grad_plain on [2^23 + 1234, 2] inputs, v
+    and w the halves of one [N, 4] tensor as the backward passes them:
+    relative error within 1e-9, the same sums bit for bit on a second
+    call; times and bound."""
+    from ame_tpu_torch.ops.sos_grad import sos_grad_cuda, sos_grad_plain
+    rng = np.random.default_rng(10)
+    g = torch.from_numpy(rng.standard_normal((N_KERNEL, 2)).astype(
+        np.float32)).cuda()
+    vw = torch.from_numpy((30.0 * rng.standard_normal((N_KERNEL, 4))).astype(
+        np.float32)).cuda()
+    v, w = vw[:, :2], vw[:, 2:]
+    got = sos_grad_cuda(g, v, w)
+    again = sos_grad_cuda(g, v, w)
+    want = sos_grad_plain(g, v, w)
+    rel = ((got - want).abs() / want.abs()).max().item()
+    if not rel <= SOS_GRAD_TOL or not torch.equal(got, again):
+        raise AssertionError(f"sos_grad vs plain: relative {rel:.3e} > "
+                             f"{SOS_GRAD_TOL}, or not the same twice")
+    ms = _cuda_ms(lambda: sos_grad_cuda(g, v, w), KERNEL_CALLS)
+    plain_ms = _cuda_ms(lambda: sos_grad_plain(g, v, w))
+    bound = _sos_grad_bound(N_KERNEL, 2)
+    print(f"sos_grad [{N_KERNEL}, 2]: relative err {rel:.3e}; kernel "
+          f"{ms:.4f} ms ({bound[0] / ms:.1%} of its bound {bound[0]:.4f} "
+          f"ms), plain {plain_ms:.4f} ms")
+    return {"max_rel_err": rel, "max_abs_err": (got - want).abs().max().item(),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "bound_share": bound[0] / ms,
+            "shape": [N_KERNEL, 2]}
+
+
+def _fit_inputs():
+    """The phase-4 track (2^23 samples, 0.1 N(0,1) seed 0 on the int16
+    grid) on the card, and the target made from it with FIT_TARGET's
+    settings through the port's quality stages."""
+    from ame_tpu_torch.ops import eq, stereo
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.trunc(np.clip(
+        0.1 * rng.standard_normal((N_MAIN, 2)), -1, 1) * 32767.0).astype(
+            np.float32) / 32768.0).cuda()
+    with torch.no_grad():
+        t = eq.apply_eq_quality(x, SR, FIT_TARGET["bass_boost"], 0.0,
+                                FIT_TARGET["presence_boost"], 0.0)
+        t = stereo.stereo_width_quality(t, FIT_TARGET["width"])
+    return x, t
+
+
+def _fit_loss(theta, x, targets):
+    from ame_tpu_torch.models import automaster as A
+    return A._perceptual_loss(theta, x, *targets, SR, FIT_RES, 1.0, 1.0,
+                              1.0, FIT_KW["tp_target"])
+
+
+def _fit_grads(x, targets, route: str):
+    """(loss, {name: dL/dtheta}) of _perceptual_loss at FIT_THETA, through
+    the kernels (route "kernel") or with every cascade on the plain
+    tile-conv (route "plain": the tables of a tensor sos in torch ops,
+    autograd through them, on the card)."""
+    from ame_tpu_torch.ops import scan_iir
+    from ame_tpu_torch.ops.tile_conv import sosfilt_tileconv
+    theta = {k: torch.tensor(v, dtype=torch.float32, device="cuda",
+                             requires_grad=True)
+             for k, v in FIT_THETA.items()}
+    saved = scan_iir._sosfilt
+    if route == "plain":
+        scan_iir._sosfilt = lambda sos, sos64, x, zi, m: sosfilt_tileconv(
+            sos, x, zi)
+    try:
+        loss = _fit_loss(theta, x, targets)
+        loss.backward()
+    finally:
+        scan_iir._sosfilt = saved
+    return loss.item(), {k: v.grad for k, v in theta.items()}
+
+
+def _fit_host_prep_us() -> dict:
+    """Host microseconds to prepare the kernel's tables of a tensor sos
+    (fetched, designed and uploaded for one call: ``_params_np`` and
+    ``_powers_np``), for the k=4 EQ and a k=1 section at C = 2."""
+    from ame_tpu_torch.ops import cascade_scan as cs
+    out = {}
+    for name, sos in (("k4", _quality_cascades()["eq_k4"]),
+                      ("k1", _quality_cascades()["eq_k4"][:1])):
+        logP = cs._geometry(2)[1]
+        t0 = time.perf_counter()
+        for _ in range(50):
+            cs._params_np(sos)
+            cs._powers_np(sos, logP)
+        out[name] = (time.perf_counter() - t0) / 50 * 1e6
+    return out
+
+
+def _fit_step_fn(x, targets):
+    """One Adam step of the fit from FIT_THETA's neighbourhood: forward,
+    backward and update."""
+    from ame_tpu_torch.models import automaster as A
+    theta = A.init_theta(True, "cuda")
+    opt = torch.optim.Adam(theta.values(), lr=0.05)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        _fit_loss(theta, x, targets).backward()
+        opt.step()
+    return step
+
+
+def fit_profile() -> int:
+    """``--fit-profile``: a fit step at 2^23 samples, host-timed (each step
+    synchronized) and under torch.profiler: busy ms a step and the idle
+    share; prints one JSON line."""
+    from ame_tpu_torch.models import automaster as A
+    x, t = _fit_inputs()
+    targets = A._perceptual_targets(t, SR, FIT_RES, 1.0, 1.0)
+    step = _fit_step_fn(x, targets)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FIT_PROFILE_STEPS):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / FIT_PROFILE_STEPS * 1e3
+    per_kernel = _profile(step, FIT_PROFILE_STEPS)
+    busy = sum(v for v, _ in per_kernel.values()) / FIT_PROFILE_STEPS
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    out = {"step_ms": ms, "busy_ms": busy, "idle_share": 1.0 - busy / ms,
+           "device_records_per_step": sum(k for _, k in per_kernel.values())
+           / FIT_PROFILE_STEPS,
+           "top": [(k[:60], v / FIT_PROFILE_STEPS) for k, (v, _) in top]}
+    print(f"fit step (profile process): {ms:.3f} ms, busy {busy:.3f} ms "
+          f"(idle share {1.0 - busy / ms:.3f}); top (ms a step): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out["top"]))
+    print(json.dumps(out))
+    return 0
+
+
+def _profile_fit() -> dict:
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--fit-profile"], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"fit profile failed: {r.stderr}")
+    lines = r.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1])
+
+
+def phase_fit() -> dict:
+    """Phase 13: (a) K5 REVERSE, (b) sos_grad, (c) dL/dtheta kernel vs
+    plain at 2^23, (d) fit_settings for FIT_STEPS steps (loss falls, bass
+    moves towards +4 dB, exact launches a step), a step's time, busy time
+    and idle share."""
+    from ame_tpu_torch.models import automaster as A
+    rev = _fit_reverse()
+    sg = _fit_sos_grad()
+    # (c)
+    x, t = _fit_inputs()
+    targets = A._perceptual_targets(t, SR, FIT_RES, 1.0, 1.0)
+    loss_k, g_k = _fit_grads(x, targets, "kernel")
+    loss_p, g_p = _fit_grads(x, targets, "plain")
+    grad_err = {k: ((g_k[k] - g_p[k]).abs().max()
+                    / g_p[k].abs().max().clamp(min=1e-30)).item()
+                for k in g_k}
+    print(f"dL/dtheta at 2^23, kernels vs plain tile-conv: loss {loss_k:.6f}"
+          f" vs {loss_p:.6f}; relative errors "
+          + ", ".join(f"{k} {e:.2e}" for k, e in grad_err.items()))
+    if not (max(grad_err.values()) <= FIT_GRAD_TOL
+            and abs(loss_k - loss_p) <= FIT_GRAD_TOL * abs(loss_p)):
+        raise AssertionError(f"fit gradient kernel vs plain: {grad_err}, "
+                             f"loss {loss_k} vs {loss_p}")
+    del g_p
+    # (d)
+    x_np, t_np = x.cpu().numpy(), t.cpu().numpy()
+    with torch.no_grad():
+        loss0 = _fit_loss(A.init_theta(True, "cuda"), x, targets).item()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = A.fit_settings(x_np, SR, t_np, steps=FIT_STEPS, lr=0.05,
+                         device="cuda", **FIT_KW)
+    fit_s = time.perf_counter() - t0
+    counts = _read_counts()
+    want = {k: FIT_STEPS * v for k, v in FIT_STEP_LAUNCHES.items()}
+    want["cascade_scan"] += FIT_OTHER_FORWARD
+    got = {k: counts[k] for k in want}
+    if got != want or any(counts[k] for k in ("wedge_env", "gain_jacobi",
+                                              "gain_p1", "gain_p2")):
+        raise AssertionError(f"fit launches {counts}, expected {want}")
+    if not (math.isfinite(out["loss"]) and out["loss"] < loss0
+            and out["bass_boost"] > 0.0):
+        raise AssertionError(f"fit did not move: loss {loss0} -> "
+                             f"{out['loss']}, settings {out}")
+    step = _fit_step_fn(x, targets)
+    step_ms = _cuda_ms(step)
+    step_host_ms = _host_s(lambda: (step(), torch.cuda.synchronize())) * 1e3
+    prep = _fit_host_prep_us()
+    print(f"fit_settings {FIT_STEPS} steps at 2^23: loss {loss0:.4f} -> "
+          f"{out['loss']:.4f}, bass {out['bass_boost']:+.3f} dB (target "
+          f"+4), presence {out['presence_boost']:+.3f} (target -2), width "
+          f"{out['width']:.4f} (target 1.3); {fit_s:.2f} s; launches a "
+          f"step {FIT_STEP_LAUNCHES}; step {step_ms:.3f} ms (host "
+          f"{step_host_ms:.3f} ms); host prep of a tensor sos (us): {prep}")
+    profile = _profile_fit()
+    return {"reverse": rev, "sos_grad": sg,
+            "grad_check": {"loss_kernel": loss_k, "loss_plain": loss_p,
+                           "max_rel_err": grad_err, "tol": FIT_GRAD_TOL},
+            "fit": {"steps": FIT_STEPS, "loss_start": loss0,
+                    "loss_end": out["loss"], "settings": out,
+                    "seconds": fit_s},
+            "counts": counts, "launches_per_step": FIT_STEP_LAUNCHES,
+            "step_ms": step_ms, "step_host_ms": step_host_ms,
+            "host_prep_us": prep, "profile": profile}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: training the mood CNN (models/train_mood.py)
+# ---------------------------------------------------------------------------
+TRAIN_PER_CLASS = 8
+TRAIN_SECONDS = 30.0
+TRAIN_BATCH = 32
+TRAIN_LR = 1e-3
+
+
+class _EpochLog(logging.Handler):
+    """Keeps the trainer's per-epoch records (epoch, loss, acc, steps,
+    ms a step)."""
+
+    def __init__(self):
+        super().__init__()
+        self.epochs = []
+
+    def emit(self, record):
+        if record.msg.startswith("epoch "):
+            self.epochs.append(record.args)
+
+
+def phase_train(tmp: str) -> dict:
+    """Phase 14: synth_corpus.generate (4 classes x 8 tracks x 30 s), then
+    train_mood.main for 2 epochs at batch 32 with a checkpoint directory,
+    then once more to 3 epochs, resumed from the checkpoint; the loss is
+    finite and falls, the written weights load through load_params and
+    analyze_song runs on them; a step's time."""
+    from ame_tpu_torch.analysis import musicologist as M
+    from ame_tpu_torch.models import mood_cnn, synth_corpus, train_mood
+    root = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    n = synth_corpus.generate(root, per_class=TRAIN_PER_CLASS,
+                              seconds=TRAIN_SECONDS)
+    gen_s = time.perf_counter() - t0
+    ck = os.path.join(tmp, "ck")
+    out = os.path.join(tmp, "mood.msgpack")
+    args = [root, "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+            "--checkpoint-dir", ck, "--out", out, "--device", "cuda"]
+    handler = _EpochLog()
+    log = logging.getLogger("ame_tpu_torch.train")
+    log.addHandler(handler)
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        train_mood.main(args + ["--epochs", "2"])
+        first_s = time.perf_counter() - t0
+        resumed_from = len(handler.epochs)
+        t0 = time.perf_counter()
+        train_mood.main(args + ["--epochs", "3"])
+        resume_s = time.perf_counter() - t0
+    finally:
+        log.removeHandler(handler)
+    counts = _read_counts()
+    epochs = [{"epoch": e, "loss": l, "acc": a, "steps": k, "step_ms": ms}
+              for e, l, a, k, ms in handler.epochs]
+    losses = [e["loss"] for e in epochs]
+    if not ([e["epoch"] for e in epochs] == [0, 1, 2] and resumed_from == 2
+            and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"training: epochs {epochs}")
+    if sorted(os.listdir(ck)) != ["ckpt_0.pt", "ckpt_1.pt", "ckpt_2.pt"]:
+        raise AssertionError(f"checkpoints: {os.listdir(ck)}")
+    model, trained = mood_cnn.load_params(out, device="cuda")
+    if not (trained and all(torch.isfinite(t).all().item()
+                            for t in model.state_dict().values())):
+        raise AssertionError("trained weights do not load")
+    saved = os.environ.get("AME_TPU_MOOD_WEIGHTS")
+    os.environ["AME_TPU_MOOD_WEIGHTS"] = out
+    try:
+        track = os.path.join(root, "Calm-Content", "000.wav")
+        brief = M.analyze_song(track, device="cuda")
+    finally:
+        if saved is None:
+            del os.environ["AME_TPU_MOOD_WEIGHTS"]
+        else:
+            os.environ["AME_TPU_MOOD_WEIGHTS"] = saved
+    if set(brief) != BRIEF_KEYS or brief["mood"] not in mood_cnn.MOOD_CLASSES:
+        raise AssertionError(f"analyze_song on the trained weights: {brief}")
+    step_ms = float(np.median([e["step_ms"] for e in epochs]))
+    print(f"train: {n} tracks in {gen_s:.1f} s; epochs "
+          + "; ".join(f"{e['epoch']}: loss {e['loss']:.4f} acc "
+                      f"{e['acc']:.3f}" for e in epochs)
+          + f"; {first_s:.1f} s + resumed {resume_s:.1f} s; step "
+          f"{step_ms:.3f} ms (batch {TRAIN_BATCH}); analyze_song on the "
+          f"trained weights: {brief['mood']}")
+    return {"tracks": n, "generate_s": gen_s, "epochs": epochs,
+            "first_run_s": first_s, "resumed_run_s": resume_s,
+            "step_ms": step_ms, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+            "mood_on_trained": brief["mood"], "counts": counts}
+
+
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
     (checked against plain, timed, split by launch) and, where the package
@@ -2463,6 +2881,12 @@ def main() -> int:
                             N_CHUNK_PARITY, "compat_chunked")
         mus = phase_musicologist(tmp)
         stream = phase_streaming(tmp)
+        t0 = time.perf_counter()
+        fit = phase_fit()
+        fit["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = phase_train(tmp)
+        train["phase_s"] = time.perf_counter() - t0
     sq, sc = stream["quality"], stream["compat"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"],
@@ -2473,7 +2897,8 @@ def main() -> int:
              "musicologist": mus["song_counts"],
              **{p: r["counts"] for p, r in sq.items()},
              "stream_compat": sc["main"]["counts"],
-             "stream_compat_steady": sc["steady"]["counts"]}
+             "stream_compat_steady": sc["steady"]["counts"],
+             "fit": fit["counts"], "train": train["counts"]}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -2549,6 +2974,29 @@ def main() -> int:
             gain["errs"][name],
             gain["ms"][name], gain["plain_ms"][name], gain["bounds"][name],
             n=gain["n"], plain_n=gain["plain_n"][name], **extra))
+    rev, sg = fit["reverse"], fit["sos_grad"]
+    kernels += [
+        entry("cascade_scan_reverse", csrc + "cascade_scan.cu",
+              "ame_tpu/ops/pallas_scan.py:65", "fit",
+              max(r["max_abs_err"] for r in rev),
+              sum(r["ms"] for r in rev[:3]),
+              sum(r["plain_ms"] for r in rev[:3]),
+              (sum(r["bound_ms"] for r in rev[:3]), "bytes"),
+              note="K5's adjoint (the backward of a cascade; ame_tpu "
+                   "differentiates its tile-conv tables with XLA, "
+                   "ame_tpu/ops/tile_conv.py:246); ms, plain_ms and "
+                   "bound_ms: the quality path's three cascades run "
+                   "backward together, [2^23 + 1234, 2]",
+              per_cascade=rev),
+        entry("sos_grad", csrc + "sos_grad.cu",
+              "ame_tpu/ops/pallas_scan.py:65", "fit",
+              sg["max_abs_err"], sg["ms"], sg["plain_ms"],
+              (sg["bound_ms"], sg["bound_by"]),
+              note="K5's coefficient gradient (ame_tpu: XLA autodiff "
+                   "through ame_tpu/ops/tile_conv.py:246); v and w as the "
+                   "halves of one [N, 4] tensor",
+              max_rel_err=sg["max_rel_err"], shape=sg["shape"]),
+    ]
     chains = {p: {"device_chain_ms": r["chain_ms"],
                   "file_ms": r["file_s"] * 1e3,
                   "busy_ms": r["busy"]["busy_ms"],
@@ -2569,6 +3017,9 @@ def main() -> int:
     print(json.dumps({"streaming": {
         "quality": sq, "k5_chain": stream["k5"]["chain"],
         "compat": sc, "latency": stream["latency"]}}))
+    print(json.dumps({"fit": {k: v for k, v in fit.items()
+                              if k not in ("reverse", "sos_grad")}}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -2580,6 +3031,8 @@ if __name__ == "__main__":
         sys.exit(musicologist_profile())
     if sys.argv[1:2] == ["--streaming-profile"]:
         sys.exit(streaming_profile())
+    if sys.argv[1:2] == ["--fit-profile"]:
+        sys.exit(fit_profile())
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else
                               os.path.dirname(os.path.abspath(__file__))))

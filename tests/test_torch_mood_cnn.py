@@ -156,8 +156,7 @@ def test_load_params_without_checkpoint(tmp_path):
     path = str(tmp_path / "none.msgpack")
     model, trained = TC.load_params(path, device="cpu")
     assert not trained
-    again = TC.MoodCNN()
-    TC._seed_init(again)
+    again = TC.init_params(0)
     for k, v in again.state_dict().items():
         assert torch.equal(v, model.state_dict()[k]), k
     TC._cache.pop((os.path.abspath(path), "cpu"))

@@ -17,9 +17,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """Importing every module of ame_tpu_torch (the Musicologist's too) and
-    loading the mood CNN's checkpoint leaves jax, flax, msgpack and ame_tpu
-    unimported."""
+    """Importing every module of ame_tpu_torch (the Musicologist's, the
+    fit's and the trainer's too) and loading the mood CNN's checkpoint
+    leaves jax, flax, msgpack and ame_tpu unimported."""
     code = ("import importlib, pkgutil, sys\n"
             "import ame_tpu_torch\n"
             "for m in pkgutil.walk_packages(ame_tpu_torch.__path__, "
@@ -28,6 +28,11 @@ def test_port_never_imports_jax():
             "import ame_tpu_torch.api\n"
             "import ame_tpu_torch.analysis.musicologist\n"
             "import ame_tpu_torch.creative.prompts\n"
+            "import ame_tpu_torch.models.automaster\n"
+            "import ame_tpu_torch.models.train_mood\n"
+            "import ame_tpu_torch.models.checkpoint\n"
+            "import ame_tpu_torch.models.synth_corpus\n"
+            "import ame_tpu_torch.ops.sos_grad\n"
             "from ame_tpu_torch.models import mood_cnn\n"
             "assert mood_cnn.load_params(device='cpu')[1]\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
