@@ -4,7 +4,7 @@ A second package beside the JAX reference (``ame_tpu/``), tested against it
 module by module. It imports ``torch`` and never ``jax``. It runs, on one
 NVIDIA card (or on the CPU through the plain PyTorch versions):
 
-  * both mastering chains on WAV/AIFF, file in and file out: quality
+  * both mastering chains, file in and file out: quality
     (with the 3- or G-band multiband) and compat (unchunked or chunked);
     every Pallas kernel of ``ame_tpu`` is a hand-written CUDA kernel here
     (``csrc/cascade_scan.cu``, ``csrc/wedge_env.cu``, ``csrc/pydub_gain.cu``);
@@ -23,13 +23,24 @@ NVIDIA card (or on the CPU through the plain PyTorch versions):
     ``csrc/sos_grad.cu``) and ``train_mood`` (the mood CNN's training
     loop with checkpoints, writing weights both packages load).
 
-MP3 export, art generation and the front ends are still to be ported
-(ROADMAP.md).
+  * the product surfaces: the command line (``python -m ame_tpu_torch
+    master|analyze|measure|automaster|serve [--device cuda|cpu]``,
+    ``cli.py``) and the HTTP server (``serve/server.py``: jobs on the
+    card, one worker thread a card by default); the codecs (``io/``: MP3
+    through LAME / mpg123, FLAC, and the FFmpeg shim where it builds; the
+    C++ shims in ``io/native/`` are compiled with ``g++`` into ``_build/``
+    at first use) and ``process_audio``'s MP3 and cover-art sidecars
+    (``creative/art.py``, ``creative/procedural.py``).
+
+The GUI, the profiler, the fleet runner and the multi-device paths are
+still to be ported (ROADMAP.md).
 
 Entry points: ``ame_tpu_torch.api.master_file`` / ``master_array`` /
 ``process_audio``, ``ame_tpu_torch.graph.chain.master_graph``,
-``ame_tpu_torch.analysis.musicologist.analyze_song`` / ``analyze_batch``
-and ``ame_tpu_torch.StreamingMaster`` / ``StreamingCompatMaster``.
+``ame_tpu_torch.analysis.musicologist.analyze_song`` / ``analyze_batch``,
+``ame_tpu_torch.StreamingMaster`` / ``StreamingCompatMaster``,
+``ame_tpu_torch.serve.server.make_server`` / ``run_server`` and
+``ame_tpu_torch.cli.main``.
 """
 
 __version__ = "0.1.0"

@@ -13,13 +13,21 @@ the reference's observability contract (SURVEY.md §5.5):
   * progress is reported as (step, total) with total = num_chunks + 4,
     where num_chunks = ceil(duration / 30 s), from the first emission on,
   * MP3 / analysis / art are best-effort sidecars; only the master path is
-    fatal. The analysis runs on ``device`` (``auto_generate_prompt``: the
-    Musicologist's brief becomes the tag line ``Mood: ... | Tempo: ... |
-    Brightness: ... | Density: ...`` and a creative art prompt; a failed
-    analysis reports ``Failed: Could not analyze audio. <error>`` and tags
-    ``Analysis Error: <error>``). MP3 export and art generation are not
-    ported yet: each reports ``Warning: ... not available in ame_tpu_torch
-    yet`` (ROADMAP.md).
+    fatal. The MP3 is LAME V0 beside the WAV (``export_mp3_sidecar``; a
+    failure is reported, never raised). The analysis runs on ``device``
+    (``auto_generate_prompt``: the Musicologist's brief becomes the tag
+    line ``Mood: ... | Tempo: ... | Brightness: ... | Density: ...`` and a
+    creative art prompt; a failed analysis reports ``Failed: Could not
+    analyze audio. <error>`` and tags ``Analysis Error: <error>``). Art
+    goes through ``creative/art.py``'s active provider, where one is
+    available, to ``<master-stem>_art.png``.
+
+``shard_time`` (one track over every card) is accepted and degrades as the
+reference's does when its sequence-parallel chain cannot run: the
+multi-device chain is not ported, so a ``Warning: time-sharding
+unavailable (...); falling back to one device.`` status is emitted and the
+track masters on ``device``. Memory is logged at the reference's milestones
+(``utils/telemetry.log_memory_usage``).
 
 Input is staged as int16 where the file is PCM16 (half the upload bytes)
 and converted on the device; the master is quantized to int16 on the device
@@ -46,16 +54,20 @@ def _noop(*a, **k):
     pass
 
 
-def _not_ported(what: str) -> str:
-    return f"Warning: {what} not available in ame_tpu_torch yet."
+_SHARD_TIME_UNAVAILABLE = ("the multi-device chain is not ported to "
+                           "ame_tpu_torch")
 
 
 def master_file(input_file: str, output_file: str,
                 settings: MasterSettings | Mapping[str, Any] | None = None,
                 status_callback: Callable[[str], None] = _noop,
                 progress_callback: Callable[[int, int], None] = _noop,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda",
+                shard_time: bool = False) -> dict:
     """Master one file: decode -> device graph -> encode.
+
+    ``shard_time``: accepted for the reference's signature; it degrades to
+    one device with a ``Warning:`` status (see the module docstring).
 
     Returns an info dict: output path, sample_rate, n_samples and the
     loudness stats (when normalization ran)."""
@@ -64,14 +76,16 @@ def master_file(input_file: str, output_file: str,
     status_callback("Loading audio into device memory...")
     audio, sr = read_audio(input_file, prefer_int16=True)
     return master_array(audio, sr, output_file, settings, status_callback,
-                        progress_callback, device=device)
+                        progress_callback, device=device,
+                        shard_time=shard_time)
 
 
 def master_array(audio: np.ndarray, sr: int, output_file: str,
                  settings: MasterSettings | Mapping[str, Any] | None = None,
                  status_callback: Callable[[str], None] = _noop,
                  progress_callback: Callable[[int, int], None] = _noop,
-                 device: str | torch.device = "cuda") -> dict:
+                 device: str | torch.device = "cuda",
+                 shard_time: bool = False) -> dict:
     """Master already-decoded audio [N, C]: float (any float dtype) or raw
     int16 samples, which are converted on the device (k/32768 is exact, so
     this equals the host float conversion). Other integer types are
@@ -79,6 +93,7 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
     from ame_tpu_torch.graph.chain import master_graph
     from ame_tpu_torch.io import force_stereo, write_audio
     from ame_tpu_torch.ops.quantize import float_to_int16, int16_roundtrip
+    from ame_tpu_torch.utils.telemetry import log_memory_usage
 
     if settings is None:
         settings = MasterSettings()
@@ -90,6 +105,8 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
                         f"{audio.dtype}; convert to float in [-1, 1) first")
     device = torch.device(device)
 
+    log_memory_usage("Pipeline Start")
+    log_memory_usage("After Decode")
     audio = force_stereo(audio)
     n = audio.shape[0]
     num_chunks = max(int(math.ceil(n / (COMPAT_CHUNK_SECONDS * sr))), 1)
@@ -108,10 +125,16 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
         # (set_sample_width(2) semantics)
         x = int16_roundtrip(x)
 
+    if shard_time:
+        log.warning("shard_time requested; %s", _SHARD_TIME_UNAVAILABLE)
+        status_callback(f"Warning: time-sharding unavailable "
+                        f"({_SHARD_TIME_UNAVAILABLE}); falling back to one "
+                        f"device.")
     status_callback("Running mastering graph on device...")
     progress_callback(1, total_steps)
     y, info = master_graph(x, sr, settings)
     progress_callback(num_chunks + 3, total_steps)
+    log_memory_usage("After Graph")
 
     status_callback("Exporting master...")
     ext = os.path.splitext(output_file)[1].lower()
@@ -121,10 +144,32 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
     else:
         write_audio(output_file, y.cpu().numpy(), sr, bits=settings.bits)
     progress_callback(total_steps, total_steps)
+    log_memory_usage("After Export")
 
     out = {"output_file": output_file, "sample_rate": sr, "n_samples": n}
     out.update({k: float(v) for k, v in info.items()})
     return out
+
+
+def export_mp3_sidecar(wav_path: str,
+                       status_callback: Callable[[str], None]) -> None:
+    """Best-effort MP3 export beside the WAV (engine:140-150 contract:
+    failures are warnings, never fatal)."""
+    if not wav_path or not os.path.exists(wav_path):
+        log.warning("master WAV missing; skipping MP3")
+        status_callback("Warning: Could not find master WAV to create MP3.")
+        return
+    mp3_path = os.path.splitext(wav_path)[0] + ".mp3"
+    status_callback("Creating high-quality MP3...")
+    try:
+        from ame_tpu_torch.io import read_audio
+        from ame_tpu_torch.io.codecs import encode_mp3
+        audio, sr = read_audio(wav_path)
+        encode_mp3(mp3_path, audio, sr, vbr_quality=0)
+        status_callback("High-quality MP3 created successfully.")
+    except Exception:
+        log.exception("MP3 export failed")
+        status_callback("Error: Failed to create MP3 file.")
 
 
 def process_audio(settings: Mapping[str, Any],
@@ -133,19 +178,21 @@ def process_audio(settings: Mapping[str, Any],
                   art_callback: Callable[[str | None], None],
                   tag_callback: Callable[[str], None],
                   device: str | torch.device = "cuda") -> None:
-    """Reference-parity orchestrator: master, then the sidecars (MP3,
-    analysis, art), with the degrade-and-continue error policy."""
+    """Reference-parity orchestrator: master -> MP3 -> analysis -> prompt ->
+    art, with the degrade-and-continue error policy."""
     try:
         input_file = settings.get("input_file")
         output_file = settings.get("output_file")
         if not input_file or not output_file:
             raise ValueError("Input or output file not specified.")
 
-        master_file(input_file, output_file, settings, status_callback,
-                    progress_callback, device=device)
+        info = master_file(input_file, output_file, settings,
+                           status_callback, progress_callback, device=device,
+                           shard_time=bool(settings.get("shard_time",
+                                                        False)))
 
         if settings.get("create_mp3", False):
-            status_callback(_not_ported("MP3 export"))
+            export_mp3_sidecar(info["output_file"], status_callback)
 
         status_callback("Mastering complete. Preparing for AI analysis...")
         manual_prompt = (settings.get("art_prompt") or "").strip()
@@ -172,10 +219,23 @@ def process_audio(settings: Mapping[str, Any],
         elif manual_prompt:
             final_art_prompt = manual_prompt
             tag_callback("Using manual prompt.")
-        if final_art_prompt:
-            status_callback(_not_ported("AI art generation"))
-        status_callback("Success: Processing complete! (No art generated)")
-        art_callback(None)
+
+        from ame_tpu_torch.creative import art as art_mod
+        if final_art_prompt and art_mod.available():
+            status_callback("Starting AI art generation...")
+            try:
+                art_path = art_mod.generate_cover_art(final_art_prompt,
+                                                      output_file)
+                status_callback("Success: AI art generation complete!")
+                art_callback(art_path)
+            except Exception:
+                log.exception("art generation failed")
+                status_callback(
+                    "Failed: Mastering complete, but AI art failed.")
+                art_callback(None)
+        else:
+            status_callback("Success: Processing complete! (No art generated)")
+            art_callback(None)
     except Exception as e:
         log.error("fatal error in process_audio:\n%s", traceback.format_exc())
         status_callback(f"Error: {e}")

@@ -1,9 +1,12 @@
-"""Format dispatch for the port: WAV and AIFF only.
+"""Format dispatch: one entry point per direction, like the reference's
+"AudioSegment.from_file / export" surface but without subprocesses.
 
 Port of ``ame_tpu/io/audio_file.py`` (``force_stereo``, ``read_audio``,
-``write_audio``), a jax-free copy. MP3, FLAC and the FFmpeg-probed formats
-need the C++ shims in ``ame_tpu/io/native/`` and are not ported yet
-(ROADMAP.md); ``read_audio`` and ``write_audio`` raise on them.
+``write_audio``), a jax-free copy. First-class: WAV and AIFF (numpy), MP3
+(the native shim's LAME / mpg123), FLAC (the shim's in-house decoder).
+Everything else routes through the in-process FFmpeg shim (``io/av.py``)
+where it builds. One repair over the reference: a file recognized by its
+RIFF magic rather than its extension keeps ``prefer_int16``.
 """
 
 from __future__ import annotations
@@ -12,10 +15,10 @@ import os
 
 import numpy as np
 
+from ame_tpu_torch.io import av as _av
+from ame_tpu_torch.io import codecs as _codecs
+from ame_tpu_torch.io import flac as _flac
 from ame_tpu_torch.io import wav as _wav
-
-_NOT_PORTED = ("{path}: only WAV and AIFF are supported by ame_tpu_torch "
-               "yet (other containers need the codec shims; see ROADMAP.md)")
 
 
 def force_stereo(audio: np.ndarray) -> np.ndarray:
@@ -29,7 +32,7 @@ def force_stereo(audio: np.ndarray) -> np.ndarray:
 
 
 def read_audio(path: str, prefer_int16: bool = False):
-    """Decode a WAV or AIFF file -> ([N, C] audio, rate).
+    """Decode any supported file -> ([N, C] audio, rate).
 
     ``prefer_int16``: PCM16 WAV comes back as raw int16, also when the file
     is recognized by its RIFF magic rather than its extension; every other
@@ -39,13 +42,24 @@ def read_audio(path: str, prefer_int16: bool = False):
         return _wav.read_wav(path, prefer_int16=prefer_int16)
     if ext in (".aif", ".aiff", ".aifc"):
         return _wav.read_aiff(path)
+    if ext == ".mp3":
+        return _codecs.decode_mp3(path)
+    if ext == ".flac":
+        return _flac.read_flac(path)
+    if ext in _av.DECODE_EXTENSIONS and _av.have_av():
+        return _av.decode(path)
+    # fall back to sniffing WAV / AIFF / FLAC magic
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"RIFF":
         return _wav.read_wav(path, prefer_int16=prefer_int16)
     if magic == b"FORM":
         return _wav.read_aiff(path)
-    raise ValueError(_NOT_PORTED.format(path=path))
+    if magic[:3] == b"fLa":
+        return _flac.read_flac(path)
+    if _av.have_av():  # unknown extension / magic: let libavformat probe it
+        return _av.decode(path)
+    raise ValueError(f"unsupported audio format: {path}")
 
 
 def write_audio(path: str, audio: np.ndarray, sample_rate: int,
@@ -53,6 +67,10 @@ def write_audio(path: str, audio: np.ndarray, sample_rate: int,
     ext = os.path.splitext(path)[1].lower()
     if ext in (".wav", ".wave"):
         return _wav.write_wav(path, audio, sample_rate, bits)
+    if ext == ".mp3":
+        return _codecs.encode_mp3(path, audio, sample_rate, vbr_quality=0)
     if ext in (".aif", ".aiff"):
         return _wav.write_aiff(path, audio, sample_rate, bits)
-    raise ValueError(_NOT_PORTED.format(path=path))
+    if ext in _av.ENCODE_EXTENSIONS and _av.have_av():
+        return _av.encode(path, audio, sample_rate)
+    raise ValueError(f"unsupported output format: {path}")

@@ -149,10 +149,33 @@ failure raises and the script exits non-zero without the final line:
      checkpoint directory, then to 3 epochs resumed from it: the loss is
      finite and falls, three checkpoints, the written msgpack loads
      through load_params, analyze_song runs on it; a step's time;
- 15. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+ 15. serve and CLI (serve/server.py, cli.py): make_server(port=0,
+     device="cuda") with one worker, phase 4's WAV PUT over HTTP as the web
+     client does: (a) a flagship job with create_mp3 and an art prompt
+     (procedural provider): done, a Success: and no Error: / Failed:, K5
+     exactly 3 launches and nothing else, the served WAV within 1 LSB of
+     master_file's on the card, -14 LUFS within 0.5 LU, a 1024x1024 PNG,
+     the MP3 sidecar decoding to the master's length within 5000 samples;
+     the same job without MP3 and art; (b) the track as an MP3 the port
+     encoded (done, K5 3, -14 within 0.5 LU), and as a FLAC of verbatim
+     subframes (the same, and within 1 LSB of the WAV upload's master);
+     (c) phase 8's compat WAV (mode="compat", multiband): K1 2, K5 7, K2 at
+     least 1, K3 / K4 never, within 1 LSB of master_file's; (d) /measure
+     within 0.01 of loudnorm_pass1 on the card; (e) a second server with 2
+     workers, 4 jobs at once (2 quality, 2 compat): all done, each within 1
+     LSB of its one-at-a-time counterpart; (f) python -m ame_tpu_torch
+     master --mp3 / measure / analyze / automaster --steps 3 in
+     subprocesses on the card, started together: the info JSON and -14
+     LUFS, the pass-1 keys, the brief's keys, a finite loss. The counts
+     are held in (a)-(c) only (plain attributes, not thread-safe). Where
+     libmp3lame or libmpg123 is absent the MP3 checks are left out and
+     "mp3" says "unavailable: ..."; latencies from the PUT's end to done,
+     the host parts (decode, art, MP3 encode) timed alone;
+ 16. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
      a {"musicologist": ...} line, a {"streaming": ...} line, a {"fit":
-     ...} line, a {"train": ...} line, then the last line
-     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+     ...} line, a {"train": ...} line, a {"serve": ...} line, then the last
+     line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+     ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
 script stops after phase 1 with a non-zero exit and prints no result.
@@ -174,15 +197,18 @@ to file). Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s f32.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import logging
 import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2766,6 +2792,383 @@ def phase_train(tmp: str) -> dict:
             "mood_on_trained": brief["mood"], "counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the server and the CLI
+# ---------------------------------------------------------------------------
+SERVE_DEVICE = "cuda"
+SERVE_POLL_S = 0.002
+SERVE_TIMEOUT_S = 300
+SERVE_ART_PROMPT = "a serene, tranquil pastel artwork of a mountain lake"
+SERVE_QUALITY = dict(FLAGSHIP, create_mp3=False)
+SERVE_COMPAT = dict(COMPAT, create_mp3=False)
+MP3_PAD = 5000                 # tests/test_io.py:80-83: the encoder's padding
+MEASURE_TOL = 0.01
+FLAC_BLOCK = 4096
+CLI_FLAGSHIP = ["--analog-character", "20", "--bass", "2", "--presence",
+                "1.5", "--width", "1.2"]
+PASS1_KEYS = {"input_i", "input_tp", "input_lra", "input_thresh",
+              "output_i", "target_offset"}
+
+
+def _flac_verbatim(path: str, pcm: np.ndarray, sr: int) -> None:
+    """Write int16 [N, C] as a FLAC stream of verbatim subframes, every
+    field byte-aligned (frames of FLAC_BLOCK, each header with its 16-bit
+    block size; CRCs and MD5 zero: the port's decoder checks none)."""
+    n, c = pcm.shape
+    info = struct.pack(">HHHBHB", FLAC_BLOCK, FLAC_BLOCK, 0, 0, 0, 0)
+    info += struct.pack(">Q", (sr << 44) | ((c - 1) << 41) | (15 << 36) | n)
+    out = [b"fLaC", b"\x80" + struct.pack(">I", len(info) + 16)[1:],
+           info, bytes(16)]
+    for i, s in enumerate(range(0, n, FLAC_BLOCK)):
+        block = pcm[s:s + FLAC_BLOCK]
+        out.append(b"\xff\xf8" + bytes([0x70, ((c - 1) << 4) | 0x08])
+                   + chr(i).encode("utf-8")
+                   + struct.pack(">H", len(block) - 1) + b"\x00")
+        for ch in range(c):
+            out.append(b"\x02" + block[:, ch].astype(">i2").tobytes())
+        out.append(b"\x00\x00")
+    with open(path, "wb") as f:
+        f.write(b"".join(out))
+
+
+def _http(base: str, path: str, payload=None, body=None) -> dict:
+    """One JSON request: POST `payload` as JSON, PUT `body`, else GET."""
+    import urllib.request
+    if body is not None:
+        req = urllib.request.Request(base + path, body, method="PUT")
+    elif payload is not None:
+        req = urllib.request.Request(base + path, json.dumps(payload).encode(),
+                                     {"Content-Type": "application/json"})
+    else:
+        req = urllib.request.Request(base + path)
+    with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+        return json.loads(r.read())
+
+
+@contextlib.contextmanager
+def _serving(workdir: str, workers: int):
+    """make_server on a free port, served from a thread, shut down after."""
+    from ame_tpu_torch.serve.server import make_server
+    srv, store = make_server(port=0, workdir=workdir, workers=workers,
+                             device=SERVE_DEVICE)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}", store
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def _upload(base: str, src: str):
+    """PUT `src` as the web client does: (gcs_uri, PUT seconds, PUT end on
+    the host clock)."""
+    r = _http(base, "/generate-upload-url",
+              {"filename": os.path.basename(src)})
+    with open(src, "rb") as f:
+        body = f.read()
+    t0 = time.perf_counter()
+    put = _http(base, r["url"], body=body)
+    t1 = time.perf_counter()
+    if put != {"ok": True, "bytes": len(body)}:
+        raise AssertionError(f"PUT {src}: {put}")
+    return r["gcs_uri"], t1 - t0, t1
+
+
+def _start(base: str, uri: str, settings: dict):
+    r = _http(base, "/start-processing", {"gcs_uri": uri,
+                                          "settings": settings})
+    return r["processed_filename"], r["image_filename"]
+
+
+def _wait(base: str, name: str, image: str):
+    """Poll /status until the job leaves `processing`: (status, the host
+    clock then)."""
+    deadline = time.perf_counter() + SERVE_TIMEOUT_S
+    while True:
+        st = _http(base, f"/status?audio_filename={name}"
+                         f"&image_filename={image}")
+        if st["status"] != "processing":
+            return st, time.perf_counter()
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"served job {name}: still processing")
+        time.sleep(SERVE_POLL_S)
+
+
+def _check_job(store, name: str, st: dict, label: str) -> dict:
+    from ame_tpu_torch.serve.server import _serve_devices
+    job = store.job_snapshot(name)
+    msgs = job["messages"]
+    if (st["status"] != "done"
+            or not any(m.startswith("Success:") for m in msgs)
+            or any(m.startswith(("Error:", "Failed:")) for m in msgs)
+            or job.get("device") != str(_serve_devices(SERVE_DEVICE)[0])):
+        raise AssertionError(f"served {label}: status {st}, device "
+                             f"{job.get('device')}, messages {msgs}")
+    return job
+
+
+def _served(base: str, store, src: str, settings: dict, label: str) -> dict:
+    """Upload, then with the counts at 0 start the job, wait for done and
+    read the counts: the job's checks, output, latency from the PUT's end to
+    done and launches."""
+    from ame_tpu_torch.io.wav import read_wav
+    uri, put_s, put_end = _upload(base, src)
+    _zero_counts()
+    name, image = _start(base, uri, settings)
+    st, t_done = _wait(base, name, image)
+    counts = _read_counts()
+    job = _check_job(store, name, st, label)
+    pcm, sr = read_wav(store.output_path(name), prefer_int16=True)
+    return {"label": label, "uri": uri, "name": name, "status": st,
+            "job": job, "pcm": pcm, "sr": sr, "counts": counts,
+            "put_s": put_s, "latency_s": t_done - put_end}
+
+
+def _lsb(a: np.ndarray, b: np.ndarray) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {a.shape} vs {b.shape}")
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def _out_lufs(pcm: np.ndarray, sr: int) -> float:
+    from ame_tpu_torch.ops.loudness import measure
+    x = torch.from_numpy(pcm.astype(np.float32) / 32768.0).to(SERVE_DEVICE)
+    return measure(x, sr)["input_i"].item()
+
+
+def _check_quality(r: dict) -> float:
+    """K5 exactly 3 launches and nothing else; -14 LUFS within 0.5 LU."""
+    others = {k: v for k, v in r["counts"].items()
+              if k != "cascade_scan" and v}
+    if r["counts"]["cascade_scan"] != 3 or others:
+        raise AssertionError(f"served {r['label']}: launches {r['counts']}, "
+                             f"expected 3 cascade_scan and nothing else")
+    out_i = _out_lufs(r["pcm"], r["sr"])
+    if abs(out_i + 14.0) > LUFS_TOL:
+        raise AssertionError(f"served {r['label']} measures {out_i} LUFS")
+    return out_i
+
+
+def _png_size(path: str):
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def _cli(args: list) -> list:
+    """``python -m ame_tpu_torch`` with each argument list, all started
+    together from the checkout on the device; returns [(wall s, stdout
+    JSON lines)], fails on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [(time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "ame_tpu_torch", *a, "--device",
+         SERVE_DEVICE], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for a in args]
+    out = []
+    for a, (t0, p) in zip(args, procs):
+        try:
+            stdout, stderr = p.communicate(timeout=SERVE_TIMEOUT_S)
+        finally:
+            p.kill()
+        if p.returncode != 0:
+            raise AssertionError(f"cli {a[0]}: exit {p.returncode}\n"
+                                 f"{stderr[-3000:]}")
+        out.append((time.perf_counter() - t0,
+                    [json.loads(ln) for ln in stdout.splitlines()
+                     if ln.startswith("{")]))
+    return out
+
+
+def phase_serve(tmp: str, device_chain_ms: float) -> dict:
+    """Phase 15: (a) a flagship quality job over HTTP with the MP3 sidecar
+    and procedural art; a quality job without them; (b) an MP3 upload the
+    port encoded, and a FLAC upload; (c) a compat multiband job; (d)
+    /measure; (e) 4 jobs at once on 2 workers; (f) the CLI in
+    subprocesses. Launches are held in (a)-(c) only: the counters are plain
+    attributes, not thread-safe."""
+    from ame_tpu_torch.api import export_mp3_sidecar, master_file
+    from ame_tpu_torch.creative import art, procedural
+    from ame_tpu_torch.io import av, codecs, force_stereo, read_audio
+    from ame_tpu_torch.io.wav import read_wav
+    from ame_tpu_torch.ops.loudnorm import loudnorm_pass1
+
+    src = os.path.join(tmp, "in.wav")            # phase 4's
+    compat_src = os.path.join(tmp, "compat_in.wav")   # phase 8's
+    libs = {"lame": codecs.have_mp3_encode(),
+            "mpg123": codecs.have_mp3_decode(), "libav": av.have_av()}
+    mp3 = libs["lame"] and libs["mpg123"]
+    mp3_note = ("checked" if mp3 else "unavailable: " + ", ".join(
+        f"lib{k} not found" for k in ("mp3lame", "mpg123")
+        if not libs["lame" if k == "mp3lame" else "mpg123"]))
+    pcm_src, _ = read_wav(src, prefer_int16=True)
+    n = pcm_src.shape[0]
+    saved_env = os.environ.get("AME_TPU_ART_PROVIDER")
+    saved_art = (art._providers, art._active)
+    os.environ["AME_TPU_ART_PROVIDER"] = "procedural"
+    art._providers, art._active = {}, None
+    try:
+        with _serving(os.path.join(tmp, "serve1"), 1) as (base, store):
+            # (a)
+            a = _served(base, store, src, dict(
+                SERVE_QUALITY, create_mp3=mp3, art_prompt=SERVE_ART_PROMPT,
+                auto_generate_prompt=False), "quality_mp3_art")
+            a_i = _check_quality(a)
+            ref = os.path.join(tmp, "serve_ref.wav")
+            master_file(src, ref, FLAGSHIP, device=SERVE_DEVICE)
+            ref_pcm, _ = read_wav(ref, prefer_int16=True)
+            a_lsb = _lsb(a["pcm"], ref_pcm)
+            if a_lsb > 1:
+                raise AssertionError(f"served master vs master_file: "
+                                     f"{a_lsb} LSB")
+            art_file = a["job"].get("art_file")
+            if (not art_file or a["status"].get("art_url") is None
+                    or _png_size(art_file) != (1024, 1024)):
+                raise AssertionError(f"served art: {art_file}, status "
+                                     f"{a['status']}")
+            mp3_len = None
+            if mp3:
+                y, _ = codecs.decode_mp3(store.output_path(
+                    a["name"][:-4] + ".mp3"))
+                mp3_len = len(y)
+                if "mp3_url" not in a["status"] or abs(mp3_len - n) >= MP3_PAD:
+                    raise AssertionError(f"MP3 sidecar: {mp3_len} samples "
+                                         f"against {n}")
+            a2 = _served(base, store, src, SERVE_QUALITY, "quality")
+            _check_quality(a2)
+            # (b)
+            uploads = {}
+            if mp3:
+                up_mp3 = os.path.join(tmp, "serve_in.mp3")
+                x_src, _ = read_audio(src)
+                t0 = time.perf_counter()
+                codecs.encode_mp3(up_mp3, x_src, SR)
+                uploads["mp3_encode_track_s"] = time.perf_counter() - t0
+                b = _served(base, store, up_mp3, SERVE_QUALITY, "mp3_upload")
+                uploads["mp3"] = {"lufs": _check_quality(b),
+                                  "latency_s": b["latency_s"],
+                                  "counts": b["counts"]}
+            up_flac = os.path.join(tmp, "serve_in.flac")
+            _flac_verbatim(up_flac, pcm_src, SR)
+            bf = _served(base, store, up_flac, SERVE_QUALITY, "flac_upload")
+            flac_lsb = _lsb(bf["pcm"], a2["pcm"])
+            if flac_lsb > 1:
+                raise AssertionError(f"FLAC upload vs WAV upload: "
+                                     f"{flac_lsb} LSB")
+            uploads["flac"] = {"lufs": _check_quality(bf),
+                               "latency_s": bf["latency_s"],
+                               "vs_wav_lsb": flac_lsb}
+            # (c)
+            c = _served(base, store, compat_src, SERVE_COMPAT, "compat")
+            cc = c["counts"]
+            if (cc["wedge_env"] != 2 or cc["cascade_scan"] != 7
+                    or cc["gain_jacobi"] < 1 or cc["gain_p1"] != 0
+                    or cc["gain_p2"] != 0):
+                raise AssertionError(f"served compat launches {cc}")
+            ref_c = os.path.join(tmp, "serve_ref_compat.wav")
+            master_file(compat_src, ref_c, COMPAT, device=SERVE_DEVICE)
+            c_lsb = _lsb(c["pcm"], read_wav(ref_c, prefer_int16=True)[0])
+            if c_lsb > 1:
+                raise AssertionError(f"served compat vs master_file: {c_lsb}"
+                                     f" LSB")
+            # (d)
+            stats = _http(base, "/measure", {"gcs_uri": a["uri"]})
+            audio, sr = read_audio(src)
+            direct = loudnorm_pass1(torch.from_numpy(np.ascontiguousarray(
+                force_stereo(audio))).to(SERVE_DEVICE), sr, target_i=-14.0)
+            measure_err = max(abs(stats[k] - float(v))
+                              for k, v in direct.items())
+            if set(direct) < PASS1_KEYS or measure_err > MEASURE_TOL:
+                raise AssertionError(f"/measure {stats} vs direct {direct}")
+        # host parts of a served job, timed alone
+        t0 = time.perf_counter()
+        read_audio(src, prefer_int16=True)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        procedural.render(SERVE_ART_PROMPT, os.path.join(tmp, "art.png"))
+        art_ms = (time.perf_counter() - t0) * 1e3
+        mp3_encode_s = None
+        if libs["lame"]:
+            t0 = time.perf_counter()
+            export_mp3_sidecar(ref, lambda m: None)
+            mp3_encode_s = time.perf_counter() - t0
+        # (e)
+        with _serving(os.path.join(tmp, "serve2"), 2) as (base, store):
+            srcs = [src, src, compat_src, compat_src]
+            sets = [SERVE_QUALITY, SERVE_QUALITY, SERVE_COMPAT, SERVE_COMPAT]
+            uris = [_upload(base, s)[0] for s in srcs]
+            t0 = time.perf_counter()
+            jobs = [_start(base, u, s) for u, s in zip(uris, sets)]
+            sts = [_wait(base, *j) for j in jobs]
+            burst_s = max(t for _, t in sts) - t0
+            burst_lsb = []
+            for (name, _), (st, _), one in zip(jobs, sts, [a2, a2, c, c]):
+                _check_job(store, name, st, "burst")
+                pcm, _ = read_wav(store.output_path(name), prefer_int16=True)
+                burst_lsb.append(_lsb(pcm, one["pcm"]))
+            if max(burst_lsb) > 1:
+                raise AssertionError(f"burst vs one at a time: {burst_lsb} "
+                                     f"LSB")
+    finally:
+        art._providers, art._active = saved_art
+        if saved_env is None:
+            os.environ.pop("AME_TPU_ART_PROVIDER", None)
+        else:
+            os.environ["AME_TPU_ART_PROVIDER"] = saved_env
+    # (f)
+    cli_out = os.path.join(tmp, "cli_out.wav")
+    (m_s, m_js), (me_s, me_js), (an_s, an_js), (au_s, au_js) = _cli([
+        ["master", src, cli_out, *CLI_FLAGSHIP, "--mp3"],
+        ["measure", src], ["analyze", src],
+        ["automaster", src, compat_src, "--steps", "3"]])
+    info, meas, brief, fitted = m_js[-1], me_js[-1], an_js[-1], au_js[0]
+    cli_i = _out_lufs(read_wav(cli_out, prefer_int16=True)[0], SR)
+    cli_mp3 = os.path.exists(cli_out[:-4] + ".mp3")
+    if (info.get("output_file") != cli_out or abs(cli_i + 14.0) > LUFS_TOL
+            or cli_mp3 != libs["lame"]
+            or not PASS1_KEYS | {"sample_rate"} <= set(meas)
+            or abs(meas["input_i"] - float(direct["input_i"])) > MEASURE_TOL
+            or set(brief) != BRIEF_KEYS
+            or not math.isfinite(fitted.get("loss", float("nan")))):
+        raise AssertionError(f"cli: master {info} ({cli_i} LUFS, mp3 "
+                             f"{cli_mp3}), measure {meas}, analyze {brief}, "
+                             f"automaster {fitted}")
+    latency_ms = a2["latency_s"] * 1e3
+    out = {
+        "device": str(SERVE_DEVICE), "libs": libs, "mp3": mp3_note,
+        "latency_ms": {"quality_mp3_art": a["latency_s"] * 1e3,
+                       "quality": latency_ms,
+                       "compat": c["latency_s"] * 1e3,
+                       **{f"{k}_upload": v["latency_s"] * 1e3
+                          for k, v in uploads.items() if isinstance(v, dict)}},
+        "put_s": a["put_s"], "upload_mb": os.path.getsize(src) / 2 ** 20,
+        "host": {"decode_ms": decode_ms, "art_ms": art_ms,
+                 "mp3_encode_s": mp3_encode_s,
+                 "mp3_encode_track_s": uploads.get("mp3_encode_track_s"),
+                 "device_chain_ms": device_chain_ms,
+                 "host_share_quality": 1.0 - device_chain_ms / latency_ms},
+        "launches": {"quality_mp3_art": a["counts"], "quality": a2["counts"],
+                     "flac_upload": bf["counts"], "compat": cc},
+        "lsb": {"served_vs_master_file": a_lsb, "compat_vs_master_file":
+                c_lsb, "flac_vs_wav": flac_lsb, "burst": burst_lsb},
+        "lufs": {"quality": a_i, "flac": uploads["flac"]["lufs"]},
+        "mp3_len": mp3_len, "n": n, "measure_max_err": measure_err,
+        "burst": {"jobs": len(jobs), "workers": 2, "wall_s": burst_s,
+                  "jobs_per_s": len(jobs) / burst_s},
+        "cli_s": {"master": m_s, "measure": me_s, "analyze": an_s,
+                  "automaster": au_s},
+        "cli": {"lufs": cli_i, "mp3": cli_mp3, "loss": fitted["loss"],
+                "mood": brief["mood"]}}
+    print(f"serve: quality job {latency_ms:.1f} ms from the PUT's end "
+          f"(with MP3 and art {a['latency_s'] * 1e3:.1f}), compat "
+          f"{c['latency_s'] * 1e3:.1f}; burst of 4 on 2 workers "
+          f"{burst_s:.3f} s = {len(jobs) / burst_s:.2f} jobs/s; K5 "
+          f"{a2['counts']['cascade_scan']} a quality job, compat {cc}; "
+          f"served vs master_file {a_lsb} LSB; mp3 {mp3_note}; libs {libs}")
+    return out
+
+
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
     (checked against plain, timed, split by launch) and, where the package
@@ -2852,6 +3255,15 @@ def kernel_times(root: str) -> int:
     return 0
 
 
+def _no_cloud_art() -> None:
+    """The run needs no network: the cloud art provider is left out (where
+    its SDK is installed, its probe reaches for credentials over the
+    network); art, where a phase asks for it, is the procedural
+    provider's."""
+    from ame_tpu_torch.creative import art
+    art._try_register_vertex = lambda: None
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind = phase_device()
@@ -2862,6 +3274,7 @@ def main() -> int:
                          f"importable ({e}); run the script from the "
                          f"repository checkout") from e
     phase_build()
+    _no_cloud_art()
     rows = phase_cascades()
     chunk_rows = phase_cascades_chunked()
     mb_rows = phase_cascades_mb()
@@ -2887,6 +3300,9 @@ def main() -> int:
         t0 = time.perf_counter()
         train = phase_train(tmp)
         train["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = phase_serve(tmp, main_run["chain_ms"])
+        serve["phase_s"] = time.perf_counter() - t0
     sq, sc = stream["quality"], stream["compat"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"],
@@ -2898,7 +3314,8 @@ def main() -> int:
              **{p: r["counts"] for p, r in sq.items()},
              "stream_compat": sc["main"]["counts"],
              "stream_compat_steady": sc["steady"]["counts"],
-             "fit": fit["counts"], "train": train["counts"]}
+             "fit": fit["counts"], "train": train["counts"],
+             **{f"serve_{p}": c for p, c in serve["launches"].items()}}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -3020,6 +3437,7 @@ def main() -> int:
     print(json.dumps({"fit": {k: v for k, v in fit.items()
                               if k not in ("reverse", "sos_grad")}}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"serve": serve}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -98,11 +98,24 @@ class _Log:
                 self.art.append, self.tags.append)
 
 
-def test_process_audio_success_contract(tmp_path):
+def _no_cloud_art(monkeypatch, *modules):
+    """An empty art registry for one test in each module, without the cloud
+    provider: its probe would reach for credentials over the network."""
+    for mod in modules:
+        monkeypatch.setattr(mod, "_try_register_vertex", lambda: None)
+        monkeypatch.setattr(mod, "_providers", {})
+        monkeypatch.setattr(mod, "_active", None)
+
+
+def test_process_audio_success_contract(tmp_path, monkeypatch):
     """Success: prefix, no Error:, one progress denominator from the first
     emission (num_chunks + 4) ending at (total, total), art None, the
-    Musicologist's tag line, and the unported sidecars (MP3, art) reported
-    as warnings."""
+    Musicologist's tag line, and the MP3 sidecar reported with the literal
+    strings of ame_tpu/api.py:233-242 (written where LAME is present)."""
+    from ame_tpu_torch.creative import art
+    from ame_tpu_torch.io import codecs
+    _no_cloud_art(monkeypatch, art)
+    monkeypatch.delenv("AME_TPU_ART_PROVIDER", raising=False)
     src = str(tmp_path / "in.wav")
     W.write_wav(src, make_test_signal("noise", SR * 2, SR) * 0.2, SR)
     log = _Log()
@@ -110,25 +123,42 @@ def test_process_audio_success_contract(tmp_path):
                 "bass_boost": 1.0, "create_mp3": True,
                 "auto_generate_prompt": True}
     api.process_audio(settings, *log.cb(), device="cpu")
-    assert any(s.startswith("Success:") for s in log.status)
-    assert not any(s.startswith("Error:") for s in log.status)
+    assert log.status[-1] == "Success: Processing complete! (No art generated)"
     assert len({t for _, t in log.progress}) == 1
     cur, total = log.progress[-1]
     assert cur == total == 1 + 4
     assert log.art == [None]
     assert os.path.exists(str(tmp_path / "m.wav"))
-    warnings = [s for s in log.status if s.startswith("Warning:")]
-    assert any("MP3" in s for s in warnings)
-    assert any("art" in s for s in warnings)
+    i = log.status.index("Exporting master...")
+    if codecs.have_mp3_encode():
+        assert log.status[i + 1:i + 3] == [
+            "Creating high-quality MP3...",
+            "High-quality MP3 created successfully."]
+        assert os.path.getsize(str(tmp_path / "m.mp3")) > 1000
+        assert not any(s.startswith("Error:") for s in log.status)
+    else:
+        assert log.status[i + 1:i + 3] == [
+            "Creating high-quality MP3...", "Error: Failed to create MP3 file."]
     assert len(log.tags) == 1 and log.tags[0].startswith("Mood: ")
     assert "Analyzing audio with the Musicologist..." in log.status
 
 
-def test_process_audio_manual_prompt_tags_like_reference(tmp_path):
-    """With art_prompt set and auto_generate_prompt off, the port calls
-    tag_callback exactly as ame_tpu.api.process_audio does ("Using manual
-    prompt."), then reports art as not available and succeeds."""
+@pytest.mark.parametrize("provider", ["default", "procedural"])
+def test_process_audio_manual_prompt_tags_like_reference(tmp_path,
+                                                         monkeypatch,
+                                                         provider):
+    """With art_prompt set, auto_generate_prompt off and create_mp3 off,
+    the port's status and tag sequences equal ame_tpu.api.process_audio's
+    ("Using manual prompt.", then art through the active provider: none by
+    default, the procedural one when opted in)."""
     from ame_tpu.api import process_audio as ref_process_audio
+    from ame_tpu.creative import art as ref_art
+    from ame_tpu_torch.creative import art
+    _no_cloud_art(monkeypatch, art, ref_art)
+    if provider == "procedural":
+        monkeypatch.setenv("AME_TPU_ART_PROVIDER", "procedural")
+    else:
+        monkeypatch.delenv("AME_TPU_ART_PROVIDER", raising=False)
     src = str(tmp_path / "in.wav")
     W.write_wav(src, make_test_signal("noise", SR, SR) * 0.2, SR)
     base = {"input_file": src, "create_mp3": False,
@@ -140,8 +170,14 @@ def test_process_audio_manual_prompt_tags_like_reference(tmp_path):
                       *log.cb(), device="cpu")
     assert ref_log.tags == ["Using manual prompt."]
     assert log.tags == ref_log.tags
-    assert any(s.startswith("Warning:") and "art" in s for s in log.status)
-    assert log.status[-1].startswith("Success:")
+    assert log.status == ref_log.status
+    assert log.progress == ref_log.progress
+    if provider == "procedural":
+        assert ref_log.art == [str(tmp_path / "r_art.png")]
+        assert log.art == [str(tmp_path / "p_art.png")]
+        assert log.status[-1] == "Success: AI art generation complete!"
+    else:
+        assert log.art == ref_log.art == [None]
 
 
 def test_process_audio_error_contract(tmp_path):

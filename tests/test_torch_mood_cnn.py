@@ -218,7 +218,15 @@ def _run_both(tmp_path, src):
 def test_process_audio_analysis_tags_like_reference(tmp_path, monkeypatch):
     """auto_generate_prompt: the same tag sequence as ame_tpu's
     process_audio (the Musicologist's tag line), then the prompt step and a
-    Success: status, no Error: / Failed:."""
+    Success: status, no Error: / Failed:. No art provider is active (the
+    cloud provider's probe, which would reach for credentials over the
+    network, is left out in both packages)."""
+    from ame_tpu.creative import art as ref_art
+    from ame_tpu_torch.creative import art
+    for mod in (art, ref_art):
+        monkeypatch.setattr(mod, "_try_register_vertex", lambda: None)
+        monkeypatch.setattr(mod, "_providers", {})
+        monkeypatch.setattr(mod, "_active", None)
     monkeypatch.delenv("AME_TPU_ART_PROVIDER", raising=False)
     src = str(tmp_path / "in.wav")
     x = 0.2 * np.random.default_rng(3).standard_normal((2 * SR, 2))

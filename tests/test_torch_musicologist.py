@@ -262,13 +262,13 @@ def test_analyze_song_matches_reference(long_wav, tmp_path):
 
 def test_analyze_song_error_contract(tmp_path):
     """Errors come back as {"error": str}, never raised: a missing file and
-    a format the port does not read."""
+    a file the decoder rejects (a damaged MP3)."""
     brief = TM.analyze_song(str(tmp_path / "missing.wav"), device="cpu")
     assert set(brief) == {"error"} and brief["error"]
     p = tmp_path / "x.mp3"
     p.write_bytes(b"ID3\x04not really an mp3")
     brief = TM.analyze_song(str(p), device="cpu")
-    assert set(brief) == {"error"} and "WAV and AIFF" in brief["error"]
+    assert set(brief) == {"error"} and "MP3 decode" in brief["error"]
 
 
 def test_analyze_song_without_card_raises(tmp_path):
