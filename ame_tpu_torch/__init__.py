@@ -24,23 +24,34 @@ NVIDIA card (or on the CPU through the plain PyTorch versions):
     loop with checkpoints, writing weights both packages load).
 
   * the product surfaces: the command line (``python -m ame_tpu_torch
-    master|analyze|measure|automaster|serve [--device cuda|cpu]``,
-    ``cli.py``) and the HTTP server (``serve/server.py``: jobs on the
-    card, one worker thread a card by default); the codecs (``io/``: MP3
-    through LAME / mpg123, FLAC, and the FFmpeg shim where it builds; the
-    C++ shims in ``io/native/`` are compiled with ``g++`` into ``_build/``
-    at first use) and ``process_audio``'s MP3 and cover-art sidecars
-    (``creative/art.py``, ``creative/procedural.py``).
+    master|analyze|measure|automaster|serve|gui|profile|fleet
+    [--device cuda|cpu]``, ``cli.py``), the HTTP server
+    (``serve/server.py``: jobs on the card, one worker thread a card by
+    default) and the desktop GUI (``gui.py`` over the headless
+    ``gui_logic.GuiController``); the codecs (``io/``: MP3 through LAME /
+    mpg123, FLAC, and the FFmpeg shim where it builds; the C++ shims in
+    ``io/native/`` are compiled with ``g++`` into ``_build/`` at first use)
+    and ``process_audio``'s MP3 and cover-art sidecars
+    (``creative/art.py``, ``creative/procedural.py``);
+  * fleet mastering (``parallel/``): ``fleet.run_fleet`` (a directory,
+    resumable from a manifest, decoded ahead by the native prefetch loader
+    ``io/loader.py``) and ``batch.master_batch`` (B same-length tracks on
+    one device); the profiler (``utils/profiler.profile_master``, a
+    torch.profiler Chrome trace through ``utils/telemetry.profile_trace``);
+    the real-FFmpeg golden harness (``io/avfilter.py``) and the mood CNN's
+    evaluation corpora (``models/oof_corpus.py``, ``oof2_corpus.py``).
 
-The GUI, the profiler, the fleet runner and the multi-device paths are
-still to be ported (ROADMAP.md).
+The multi-device paths are still to be ported (ROADMAP.md).
 
 Entry points: ``ame_tpu_torch.api.master_file`` / ``master_array`` /
 ``process_audio``, ``ame_tpu_torch.graph.chain.master_graph``,
 ``ame_tpu_torch.analysis.musicologist.analyze_song`` / ``analyze_batch``,
 ``ame_tpu_torch.StreamingMaster`` / ``StreamingCompatMaster``,
-``ame_tpu_torch.serve.server.make_server`` / ``run_server`` and
-``ame_tpu_torch.cli.main``.
+``ame_tpu_torch.serve.server.make_server`` / ``run_server``,
+``ame_tpu_torch.parallel.fleet.run_fleet``,
+``ame_tpu_torch.parallel.batch.master_batch``,
+``ame_tpu_torch.utils.profiler.profile_master``,
+``ame_tpu_torch.gui.run_gui`` and ``ame_tpu_torch.cli.main``.
 """
 
 __version__ = "0.1.0"

@@ -29,6 +29,7 @@ import torch.nn.functional as Fn
 from ame_tpu_torch import precision
 from ame_tpu_torch.analysis import features as F
 from ame_tpu_torch.analysis import stft as S
+from ame_tpu_torch.device import resolve_device
 from ame_tpu_torch.models import mood_cnn
 from ame_tpu_torch.ops.resample import input_needed, resample
 
@@ -47,14 +48,6 @@ def _warn_untrained_once():
         _warned_untrained = True
         log.warning("mood CNN running with untrained (seed) weights — "
                     "set AME_TPU_MOOD_WEIGHTS to a trained checkpoint")
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the Musicologist runs on the "
-                           "card (device='cpu' runs it on the host)")
-    return dev
 
 
 def load_for_analysis(path: str, device="cuda") -> torch.Tensor:
@@ -135,7 +128,7 @@ def analyze_waveform(y: torch.Tensor) -> dict:
 def analyze_song(audio_file_path: str, device="cuda") -> dict:
     """File-level entry point; error-dict contract of
     ai_tagger.analyze_song."""
-    dev = _device(device)
+    dev = resolve_device(device, "the Musicologist")
     log.info("analyzing song: %s", audio_file_path)
     try:
         return analyze_waveform(load_for_analysis(audio_file_path, dev))
@@ -149,7 +142,7 @@ def analyze_batch(paths: list[str], device="cuda") -> list[dict]:
     length (almost always one group, the 30 s window) and each group runs
     as one device pass and one fetch; a track that cannot be loaded gets
     an error dict. The briefs equal the per-track path's."""
-    dev = _device(device)
+    dev = resolve_device(device, "the Musicologist")
     ys: list = []
     briefs: list[dict | None] = []
     for p in paths:

@@ -5,11 +5,13 @@
     python -m ame_tpu_torch measure song.wav [--input-only]
     python -m ame_tpu_torch automaster in.wav ref.wav [out.wav] --steps 200
     python -m ame_tpu_torch serve --port 8080
+    python -m ame_tpu_torch gui
+    python -m ame_tpu_torch profile song.wav --runs 10 [--trace DIR]
+    python -m ame_tpu_torch fleet in_dir/ out_dir/ [--manifest M.json]
 
 Every subcommand runs on the card (``--device cuda``, the default; it
 raises where there is none) unless ``--device cpu`` asks for the host.
-``gui``, ``profile`` and ``fleet`` are parsed as ``ame_tpu``'s are, then
-exit with code 2: they are not ported yet.
+``fleet`` exits with 2 when a track failed (the manifest records which).
 """
 
 from __future__ import annotations
@@ -19,19 +21,13 @@ import json
 import logging
 import sys
 
-_NOT_PORTED = ("ame_tpu_torch: '{cmd}' is not ported yet (the GUI, the "
-               "profiler and the fleet runner follow the server and the "
-               "CLI); use python -m ame_tpu {cmd}")
-
-
 def _float_list(s: str) -> tuple:
     """argparse type for comma-separated floats ("150,1000,6000")."""
     return tuple(float(v) for v in s.split(",") if v.strip())
 
 
 def _add_chain_args(p: argparse.ArgumentParser) -> None:
-    """The chain knobs shared by master and the (unported) fleet and
-    profile commands."""
+    """The chain knobs shared by master, fleet and profile."""
     p.add_argument("--analog-character", type=float, default=0.0)
     p.add_argument("--bass", type=float, default=0.0, dest="bass_boost")
     p.add_argument("--mid-cut", type=float, default=0.0, dest="mid_cut")
@@ -183,16 +179,26 @@ def _parser() -> argparse.ArgumentParser:
     pu.add_argument("--lufs", type=float, default=-14.0)
     pu.add_argument("--no-lufs", action="store_true")
 
-    # parsed as ame_tpu's, then refused (exit 2): not ported yet
-    sub.add_parser("gui", help="desktop GUI (not ported)")
-    pp = sub.add_parser("profile", help="performance report (not ported)")
+    sub.add_parser("gui", parents=[dev],
+                   help="desktop GUI (jobs on --device)")
+
+    pp = sub.add_parser(
+        "profile", parents=[dev],
+        help="performance report for the mastering graph on the device: "
+             "cold start (kernel builds included), steady-state x-realtime "
+             "(CUDA events), per-stage breakdown, memory peaks; optionally "
+             "a torch.profiler Chrome trace")
     pp.add_argument("input")
-    pp.add_argument("--runs", type=int, default=10)
-    pp.add_argument("--no-stages", action="store_true")
-    pp.add_argument("--trace", default=None, metavar="DIR")
+    pp.add_argument("--runs", type=int, default=10,
+                    help="steady-state timing runs (median reported)")
+    pp.add_argument("--no-stages", action="store_true",
+                    help="skip the per-stage breakdown")
+    pp.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace into DIR")
     _add_chain_args(pp)
-    pf = sub.add_parser("fleet",
-                        help="master a directory, resumable (not ported)")
+
+    pf = sub.add_parser("fleet", parents=[dev],
+                        help="master a directory (resumable)")
     pf.add_argument("input_dir")
     pf.add_argument("output_dir")
     pf.add_argument("--manifest", default=None)
@@ -284,16 +290,53 @@ def _serve(args) -> int:
     return 0
 
 
+_CHAIN_KEYS = ("analog_character", "bass_boost", "mid_cut", "presence_boost",
+               "treble_boost", "width", "multiband", "low_thresh",
+               "low_ratio", "mid_thresh", "mid_ratio", "high_thresh",
+               "high_ratio", "mode")
+
+
+def _chain_settings(args) -> dict:
+    """The settings dict of fleet and profile (ame_tpu/cli.py's keys)."""
+    settings = {k: getattr(args, k) for k in _CHAIN_KEYS}
+    settings["lufs"] = None if args.no_lufs else args.lufs
+    return settings
+
+
+def _gui(args) -> int:
+    from ame_tpu_torch.gui import run_gui
+    run_gui(device=args.device)
+    return 0
+
+
+def _profile(args) -> int:
+    from ame_tpu_torch.io import force_stereo, read_audio
+    from ame_tpu_torch.utils.profiler import profile_master
+    audio, sr = read_audio(args.input)
+    report = profile_master(force_stereo(audio), sr, _chain_settings(args),
+                            runs=args.runs, stages=not args.no_stages,
+                            trace_dir=args.trace, device=args.device)
+    print(json.dumps(report))
+    return 0
+
+
+def _fleet(args) -> int:
+    from ame_tpu_torch.parallel.fleet import run_fleet
+    summary = run_fleet(args.input_dir, args.output_dir,
+                        _chain_settings(args), args.manifest,
+                        _stderr("fleet"), device=args.device)
+    print(json.dumps(summary))
+    return 0 if summary["failed"] == 0 else 2
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s - %(levelname)s - [%(funcName)s] - %(message)s")
     args = _parser().parse_args(argv)
-    if args.cmd in ("gui", "profile", "fleet"):
-        print(_NOT_PORTED.format(cmd=args.cmd), file=sys.stderr)
-        return 2
     return {"master": _master, "analyze": _analyze, "measure": _measure,
-            "automaster": _automaster, "serve": _serve}[args.cmd](args)
+            "automaster": _automaster, "serve": _serve, "gui": _gui,
+            "profile": _profile, "fleet": _fleet}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,12 @@ MP3 encode through LAME and decode through mpg123, both ``dlopen``ed at run
 time, and the in-house FLAC decoder (``io/flac.py``).
 
 Port of ``ame_tpu/io/codecs.py``. The shim is the port's own copy of the
-source, compiled with ``g++`` into ``ame_tpu_torch/_build/`` by
+sources, compiled with ``g++`` into ``ame_tpu_torch/_build/`` by
 ``ops._build.build_host`` (content hash, temp file and rename; never
-``make`` in the source directory). Graceful degradation keeps the
+``make`` in the source directory). As in the reference
+(``ame_tpu/io/native/Makefile``), one library holds the codecs and the
+prefetch loader (``io/native/ameloader.cpp``, bound by ``io/loader.py``);
+the library's hash covers both sources. Graceful degradation keeps the
 reference's optional-dependency policy: if the shim cannot build or the
 system libraries are absent, MP3 support reports unavailable (logged)
 instead of failing the pipeline — MP3 export failures are warnings in the
@@ -23,7 +26,8 @@ import numpy as np
 
 log = logging.getLogger("ame_tpu_torch.io")
 
-_SOURCE = Path(__file__).resolve().parent / "native" / "amecodec.cpp"
+_NATIVE = Path(__file__).resolve().parent / "native"
+_SOURCES = (_NATIVE / "amecodec.cpp", _NATIVE / "ameloader.cpp")
 
 _lib = None
 _lib_tried = False
@@ -40,7 +44,7 @@ def _load() -> ctypes.CDLL | None:
         _lib_tried = True
         from ame_tpu_torch.ops._build import build_host
         try:
-            path = build_host("amecodec", [_SOURCE], ("-ldl", "-lpthread"))
+            path = build_host("amecodec", _SOURCES, ("-ldl", "-lpthread"))
             lib = ctypes.CDLL(str(path["path"]))
         except (RuntimeError, OSError) as e:  # no toolchain: degrade
             log.warning("amecodec unavailable: %s", e)

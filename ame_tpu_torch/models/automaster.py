@@ -30,6 +30,7 @@ import torch
 
 from ame_tpu_torch import precision
 from ame_tpu_torch.analysis.stft import melspectrogram
+from ame_tpu_torch.device import resolve_device
 from ame_tpu_torch.graph.multiband import multiband_quality, quality_band_split
 from ame_tpu_torch.ops import eq, saturate, stereo
 from ame_tpu_torch.ops.loudness import true_peak_db
@@ -171,14 +172,6 @@ def _perceptual_loss(theta: dict, x: torch.Tensor, target_profs,
     return loss
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: fit_settings runs on the card "
-                           "(device='cpu' runs it on the host)")
-    return dev
-
-
 def init_theta(optimize_multiband: bool, device) -> dict:
     """The reference's starting point: character ~0, width 1, flat EQ; with
     multiband, thresholds at -20 dB (the detector must cross them, or
@@ -222,7 +215,7 @@ def fit_settings(x, sample_rate: float, target,
     Returns a reference-schema settings dict (multiband keys included when
     optimized; add lufs yourself) with the final ``loss``.
     """
-    dev = _device(device)
+    dev = resolve_device(device, "fit_settings")
     precision.apply()
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)

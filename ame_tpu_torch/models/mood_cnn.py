@@ -88,6 +88,18 @@ class MoodCNN(nn.Module):
         return self.dense1(x)
 
 
+@torch.no_grad()
+def predict_mood(model: MoodCNN, image: torch.Tensor) -> str:
+    """The single-image path of the reference's tagger (ai_tagger.py:70-73;
+    ``ame_tpu.models.mood_cnn.predict_mood``): one [128, 128, 3] image as a
+    batch of 1 on the model's device, argmax over the logits, the class
+    name."""
+    precision.apply()
+    dev = next(model.parameters()).device
+    logits = model(image.to(dev, torch.float32)[None])
+    return MOOD_CLASSES[int(logits[0].argmax())]
+
+
 def _dropout(x: torch.Tensor, rate: float,
              generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each unit with probability 1 - rate and

@@ -31,6 +31,8 @@ import time
 import numpy as np
 import torch
 
+from ame_tpu_torch.device import resolve_device
+
 log = logging.getLogger("ame_tpu_torch.train")
 
 
@@ -119,14 +121,6 @@ def _load_examples(root: str, rng: np.random.Generator,
                 yield M.spectrogram_image(seg).contiguous(), label
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: training runs on the card "
-                           "(--device cpu runs it on the host)")
-    return dev
-
-
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -149,7 +143,7 @@ def main(argv=None) -> int:
 
     from ame_tpu_torch.models import checkpoint, mood_cnn
 
-    dev = _device(args.device)
+    dev = resolve_device(args.device, "training")
     rng = np.random.default_rng(0)
     examples = list(_load_examples(args.data_root, rng, device=dev))
     if not examples:

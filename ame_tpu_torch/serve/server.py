@@ -58,6 +58,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from ame_tpu_torch.device import resolve_device
+
 log = logging.getLogger("ame_tpu_torch.serve")
 
 _DOWNLOAD_CHUNK = 256 * 1024
@@ -330,11 +332,8 @@ def _serve_devices(device: str = "cuda") -> list[torch.device]:
     card, capped by AME_TPU_SERVE_DEVICES (0/unset = all); raises where
     there is none — the server never falls back to the CPU. ``"cpu"``:
     one host device, on request only."""
-    if torch.device(device).type == "cpu":
+    if resolve_device(device, "the server").type == "cpu":
         return [torch.device("cpu")]
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the server masters on the card "
-                           "(device='cpu' runs it on the host)")
     n = torch.cuda.device_count()
     cap = int(os.environ.get("AME_TPU_SERVE_DEVICES", 0))
     if cap > 0:

@@ -47,6 +47,7 @@ import torch
 from ame_tpu_torch import config as C
 from ame_tpu_torch import precision
 from ame_tpu_torch.config import MasterSettings
+from ame_tpu_torch.device import resolve_device
 from ame_tpu_torch.graph import multiband as mb
 from ame_tpu_torch.ops import window as W
 from ame_tpu_torch.ops.compressor import attack_sos
@@ -62,14 +63,6 @@ def _coerce_settings(settings) -> MasterSettings:
     if not isinstance(settings, MasterSettings):
         settings = MasterSettings.from_dict(dict(settings))
     return settings
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: streaming runs on the card "
-                           "(device='cpu' runs it on the host)")
-    return dev
 
 
 def _f32(v: float) -> float:
@@ -183,7 +176,7 @@ class StreamingMaster:
     def __init__(self, sample_rate: float, settings=None,
                  gain_db: float = 0.0, device="cuda"):
         settings = _coerce_settings(settings)
-        self.device = _device(device)
+        self.device = resolve_device(device, "streaming")
         precision.apply()
         sr = float(sample_rate)
         self.sample_rate = sr
@@ -325,7 +318,7 @@ class StreamingCompatMaster:
             raise ValueError("mb_edges (G-band multiband) is quality-mode "
                              "only; compat streaming is pinned to the "
                              "reference's 3-band stage")
-        self.device = _device(device)
+        self.device = resolve_device(device, "streaming")
         precision.apply()
         self.sample_rate = float(sample_rate)
         self.block_len = int(C.COMPAT_CHUNK_SECONDS * sample_rate)

@@ -171,11 +171,41 @@ failure raises and the script exits non-zero without the final line:
      libmp3lame or libmpg123 is absent the MP3 checks are left out and
      "mp3" says "unavailable: ..."; latencies from the PUT's end to done,
      the host parts (decode, art, MP3 encode) timed alone;
- 16. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+ 16. GUI, fleet, batch, profile, evaluation (gui_logic.py, gui.py,
+     parallel/, io/loader.py, utils/profiler.py, models/oof*_corpus.py,
+     io/avfilter.py), on phase 4's and phase 8's WAVs: (a) a GuiController
+     with a recorder view starts a flagship job through process_audio on a
+     worker thread and is drained until not busy: one Success: status, no
+     Error: / Failed:, progress ending at its total, one info dialog, K5
+     exactly 3 launches and nothing else, the master within 1 LSB of
+     master_file's; then Match Reference through gui._fit_files (120 steps)
+     against phase 13's +4 dB-bass target: the bass slider rises, the match
+     ends not busy; (b) run_fleet over the quality WAV, its FLAC, the
+     compat WAV in compat mode, an AIFF of the quality track and a corrupt
+     WAV, then again: 4 done and 1 error, the second run skips the 4; the
+     loader decodes the WAVs and the FLAC natively and the AIFF (and the
+     corrupt file) in Python; launches a track (K5 3 a quality track; K1 2,
+     K5 7, K2 >= 1 for the compat one) and its time from the loader's
+     yield to the manifest's fsync; every master within 1 LSB of
+     master_file's; python -m ame_tpu_torch fleet in a subprocess (exit 0,
+     its summary); (c) master_batch on [4, 2^23, 2] (the quality track and
+     three noise tracks): K5 exactly 12, each output within 2e-4 of
+     master_graph on its track, its device time; (d) python -m
+     ame_tpu_torch profile --runs 5 --trace in subprocesses, quality and
+     compat multiband without LUFS: ame_tpu's report keys and stage names,
+     steady_ms and x_realtime > 0, the Chrome trace's kernel events holding
+     K5's kernels (quality) and K1's (compat); (e) the out-of-family and
+     third-family corpora (seed 77, 4 a class, 20 s) through the
+     spectrogram image and predict_mood on the card: accuracy >= 0.75 each;
+     (f) the golden-FFmpeg harness: available, or the reason it is not
+     (reported, not failed); where available loudnorm_pass1 on the card
+     within 0.1 LU of the real filter's input_i; (g) device_memory_stats
+     lists only cuda:0;
+ 17. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
      a {"musicologist": ...} line, a {"streaming": ...} line, a {"fit":
-     ...} line, a {"train": ...} line, a {"serve": ...} line, then the last
-     line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-     ...}}.
+     ...} line, a {"train": ...} line, a {"serve": ...} line, a
+     {"surfaces": ...} line, then the last line {"ok": true, "device":
+     {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
 script stops after phase 1 with a non-zero exit and prints no result.
@@ -3169,6 +3199,424 @@ def phase_serve(tmp: str, device_chain_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the GUI, fleet, batch, profile and evaluation surfaces
+# ---------------------------------------------------------------------------
+GUI_POLL_S = 0.005
+GUI_TIMEOUT_S = 600
+GUI_FIT_STEPS = 120             # ame_tpu/gui.py's _fit_files
+BATCH = 4
+BATCH_SEEDS = (4, 5, 6)         # _noise_input's seeds for the 3 more tracks
+PROFILE_RUNS = 5
+EVAL_SEED = 77                  # tests/test_mood_model.py:40-84's protocol
+EVAL_PER_CLASS = 4
+EVAL_SECONDS = 20.0
+EVAL_FLOOR = 0.75
+GOLDEN_TOL_LU = 0.1
+FLEET_QUALITY = dict(FLAGSHIP, create_mp3=False)
+FLEET_COMPAT = {"mode": "compat", "multiband": True}
+VIEW_METHODS = ("set_status", "set_progress", "set_tag", "show_art",
+                "set_busy", "set_match_busy", "show_info", "show_error",
+                "set_value", "enable_multiband")
+
+
+class _RecorderView:
+    """The GUI controller's view surface, recording every call in order."""
+
+    def __init__(self):
+        self.calls = []
+        self.values = {}
+
+    def __getattr__(self, name):
+        if name not in VIEW_METHODS:
+            raise AttributeError(name)
+
+        def record(*args):
+            self.calls.append((name, *args))
+            if name == "set_value":
+                self.values[args[0]] = args[1]
+        return record
+
+    def kind(self, name):
+        return [c[1:] for c in self.calls if c[0] == name]
+
+
+def _pump(ctl, done) -> float:
+    """Drain the controller's queue like the Tk after() loop until done();
+    returns the seconds it took."""
+    t0 = time.perf_counter()
+    while True:
+        ctl.drain()
+        if done():
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > GUI_TIMEOUT_S:
+            raise AssertionError("GUI job did not finish")
+        time.sleep(GUI_POLL_S)
+
+
+def _gui(tmp: str, src: str) -> dict:
+    """(a) The GUI controller headless on the card: a flagship job through
+    the port's process_audio on a worker thread (launches counted around
+    it), and Match Reference through _fit_files against phase 13's target."""
+    import functools
+    from ame_tpu_torch import api, gui
+    from ame_tpu_torch.gui_logic import GuiController, build_settings
+    from ame_tpu_torch.io.wav import read_wav, write_wav
+    sliders = {key: default for _, key, _, _, default in
+               gui.MAIN_SLIDERS + gui.MB_SLIDERS}
+    sliders.update({k: FLAGSHIP[k] for k in ("analog_character",
+                                             "bass_boost", "presence_boost",
+                                             "width", "lufs")})
+    out = os.path.join(tmp, "gui_out.wav")
+    settings = build_settings(sliders, input_file=src, output_file=out,
+                              multiband=False, art_prompt="",
+                              auto_generate_prompt=False, create_mp3=False)
+    view = _RecorderView()
+    ctl = GuiController(view)
+    _zero_counts()
+    t0 = time.perf_counter()
+    worker = ctl.start(settings, functools.partial(api.process_audio,
+                                                   device="cuda"))
+    _pump(ctl, lambda: not ctl.busy)
+    job_s = time.perf_counter() - t0
+    worker.join(GUI_TIMEOUT_S)
+    counts = _read_counts()
+    statuses = [s for (s,) in view.kind("set_status")]
+    progress = view.kind("set_progress")
+    infos = view.kind("show_info")
+    ref = os.path.join(tmp, "gui_ref.wav")
+    api.master_file(src, ref, FLAGSHIP, device="cuda")
+    lsb = _lsb(read_wav(out, prefer_int16=True)[0],
+               read_wav(ref, prefer_int16=True)[0])
+    others = {k: v for k, v in counts.items() if k != "cascade_scan" and v}
+    if (sum(s.startswith("Success:") for s in statuses) != 1
+            or any(s.startswith(("Error:", "Failed:")) for s in statuses)
+            or progress[-1][0] != progress[-1][1] or len(infos) != 1
+            or counts["cascade_scan"] != 3 or others or lsb > 1):
+        raise AssertionError(f"GUI job: statuses {statuses}, progress "
+                             f"{progress[-3:]}, dialogs {infos}, launches "
+                             f"{counts}, vs master_file {lsb} LSB")
+    # Match Reference: _fit_files (120 steps) against the +4 dB bass target
+    _, t = _fit_inputs()
+    target = os.path.join(tmp, "fit_target.wav")
+    write_wav(target, t.cpu().numpy(), SR, bits=32)
+    del t
+    t0 = time.perf_counter()
+    ctl.start_match(src, target, False,
+                    functools.partial(gui._fit_files, device="cuda"))
+    _pump(ctl, lambda: view.kind("set_match_busy")[-1] == (False,))
+    match_s = time.perf_counter() - t0
+    last = [s for (s,) in view.kind("set_status")][-1]
+    bass = view.values.get("bass_boost")
+    bass_default = {k: d for _, k, _, _, d in gui.MAIN_SLIDERS}["bass_boost"]
+    if (not last.startswith("Success: matched reference") or bass is None
+            or not bass > bass_default or ctl.busy):
+        raise AssertionError(f"GUI match: status {last!r}, fitted values "
+                             f"{view.values}")
+    print(f"gui: job {job_s:.3f} s (K5 {counts['cascade_scan']}, vs "
+          f"master_file {lsb} LSB, {len(statuses)} statuses, progress "
+          f"{progress[-1]}); match {GUI_FIT_STEPS} steps {match_s:.2f} s, "
+          f"fitted {view.values}")
+    return {"job_s": job_s, "counts": counts, "lsb_vs_master_file": lsb,
+            "statuses": len(statuses), "match_s": match_s,
+            "fitted": dict(view.values), "match_status": last}
+
+
+def _fleet(tmp: str, src: str, compat_src: str) -> dict:
+    """(b) run_fleet over five files into one output directory and one
+    manifest (a directory of the quality WAV, its FLAC, an AIFF of the
+    quality track and a corrupt WAV in quality mode, then a directory of
+    the compat WAV in compat mode), twice; launches and time per track
+    from the loader's yield to the manifest's fsync; then the fleet CLI in
+    a subprocess."""
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.io import loader
+    from ame_tpu_torch.io.wav import read_wav, write_aiff
+    from ame_tpu_torch.parallel import fleet
+    indir, outdir = os.path.join(tmp, "fleet_in"), os.path.join(tmp,
+                                                                "fleet_out")
+    compat_dir = os.path.join(tmp, "fleet_in_compat")
+    manifest_path = os.path.join(outdir, "fleet_manifest.json")
+    os.makedirs(indir)
+    os.makedirs(compat_dir)
+    pcm, _ = read_wav(src, prefer_int16=True)
+    files = {"a_quality.wav": None, "b_quality.flac": None,
+             "c_compat.wav": FLEET_COMPAT, "d_quality.aiff": None,
+             "e_corrupt.wav": None}
+    shutil.copy(src, os.path.join(indir, "a_quality.wav"))
+    _flac_verbatim(os.path.join(indir, "b_quality.flac"), pcm, SR)
+    shutil.copy(compat_src, os.path.join(compat_dir, "c_compat.wav"))
+    write_aiff(os.path.join(indir, "d_quality.aiff"), pcm, SR, 16)
+    with open(os.path.join(indir, "e_corrupt.wav"), "wb") as f:
+        f.write(b"RIFF\x24\x00\x00\x00WAVEnot a wave at all")
+
+    def run_both(**kw):
+        """The quality directory, then the compat one; summed counts."""
+        runs = [fleet.run_fleet(d, outdir, settings,
+                                manifest_path=manifest_path, **kw)
+                for d, settings in ((indir, FLEET_QUALITY),
+                                    (compat_dir, {**FLEET_QUALITY,
+                                                  **FLEET_COMPAT}))]
+        return {k: sum(r[k] for r in runs)
+                for k in ("total", "done", "resumed_skips", "failed")}
+
+    marks, starts = {}, {}
+    mark = fleet.Manifest.mark
+
+    def timed_mark(self, track, status, **extra):
+        mark(self, track, status, **extra)
+        marks[track] = (time.perf_counter() - starts[track], status,
+                        _read_counts())
+
+    def on_status(msg):
+        if msg.startswith("Mastering "):
+            name = msg[len("Mastering "):-len("...")]
+            _zero_counts()
+            starts[name] = time.perf_counter()
+
+    loader.decodes = {"native": {}, "python": {}}
+    fleet.Manifest.mark = timed_mark
+    try:
+        t0 = time.perf_counter()
+        s1 = run_both(status_callback=on_status)
+        run_s = time.perf_counter() - t0
+        decodes = {k: dict(v) for k, v in loader.decodes.items()}
+    finally:
+        fleet.Manifest.mark = mark
+    s2 = run_both()
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    states = {k: v["status"] for k, v in manifest.items()}
+    want_states = {k: ("error" if k.startswith("e_") else "done")
+                   for k in files}
+    if (states != want_states or s1["done"] != 4 or s1["failed"] != 1
+            or s2["done"] != 0 or s2["resumed_skips"] != 4
+            or s2["failed"] != 1
+            or decodes != {"native": {".wav": 2, ".flac": 1},
+                           "python": {".aiff": 1, ".wav": 1}}):
+        raise AssertionError(f"fleet: manifest {states}, runs {s1} / {s2}, "
+                             f"decodes {decodes}")
+    lsb, launches = {}, {}
+    for name, over in files.items():
+        counts = marks[name][2]
+        launches[name] = counts
+        if name.startswith("e_"):
+            if any(counts.values()):
+                raise AssertionError(f"fleet {name}: launches {counts}")
+            continue
+        if over:
+            ok = (counts["wedge_env"] == 2 and counts["cascade_scan"] == 7
+                  and counts["gain_jacobi"] >= 1 and not counts["gain_p1"]
+                  and not counts["gain_p2"])
+        else:
+            ok = counts["cascade_scan"] == 3 and not any(
+                v for k, v in counts.items() if k != "cascade_scan")
+        if not ok:
+            raise AssertionError(f"fleet {name}: launches {counts}")
+        ref = os.path.join(tmp, f"fleet_ref_{name}.wav")
+        master_file(os.path.join(compat_dir if over else indir, name), ref,
+                    {**FLEET_QUALITY, **(over or {})}, device="cuda")
+        stem = os.path.splitext(name)[0]
+        lsb[name] = _lsb(read_wav(os.path.join(outdir,
+                                               f"{stem}_mastered.wav"),
+                                  prefer_int16=True)[0],
+                         read_wav(ref, prefer_int16=True)[0])
+    if max(lsb.values()) > 1:
+        raise AssertionError(f"fleet vs master_file: {lsb} LSB")
+    # the CLI, on a directory without the corrupt file: exit 0
+    cli_in = os.path.join(tmp, "fleet_cli_in")
+    os.makedirs(cli_in)
+    for name in ("a_quality.wav", "b_quality.flac"):
+        shutil.copy(os.path.join(indir, name), os.path.join(cli_in, name))
+    ((cli_s, cli_js),) = _cli([["fleet", cli_in,
+                                os.path.join(tmp, "fleet_cli_out"),
+                                *CLI_FLAGSHIP]])
+    summary = cli_js[-1]
+    if summary.get("done") != 2 or summary.get("failed") != 0:
+        raise AssertionError(f"fleet cli: {summary}")
+    track_ms = {k: v[0] * 1e3 for k, v in marks.items()}
+    print(f"fleet: {s1['done']} done, {s1['failed']} error, then "
+          f"{s2['resumed_skips']} skipped; run {run_s:.3f} s; ms a track "
+          f"(yield to fsync) " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in track_ms.items())
+          + f"; decodes {decodes}; vs master_file {lsb} LSB; cli "
+          f"{cli_s:.1f} s")
+    return {"run_s": run_s, "track_ms": track_ms, "launches": launches,
+            "decodes": decodes, "lsb_vs_master_file": lsb,
+            "summaries": [s1, s2], "cli_s": cli_s, "cli_summary": summary}
+
+
+def _batch(src: str, device_chain_ms: float) -> dict:
+    """(c) master_batch on [4, 2^23, 2]: the quality track and three noise
+    tracks; each output against master_graph on that track (2e-4), K5
+    exactly 3 a track; device time beside the single-track chain's."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.io.wav import read_wav
+    from ame_tpu_torch.parallel.batch import master_batch
+    pcm, _ = read_wav(src, prefer_int16=True)
+    xs = torch.stack(
+        [torch.from_numpy(pcm).cuda().to(torch.float32) * (1.0 / 32768.0)]
+        + [_noise_input(N_MAIN, 2, s)[0] for s in BATCH_SEEDS])
+    _zero_counts()
+    ys = master_batch(xs, SR, FLAGSHIP)
+    counts = _read_counts()
+    others = {k: v for k, v in counts.items() if k != "cascade_scan" and v}
+    if counts["cascade_scan"] != 3 * BATCH or others:
+        raise AssertionError(f"master_batch launches {counts}")
+    settings = MasterSettings(**FLAGSHIP)
+    errs = []
+    for b in range(BATCH):
+        y, _ = master_graph(xs[b], SR, settings)
+        errs.append((ys[b] - y).abs().max().item())
+    if not (torch.isfinite(ys).all().item() and max(errs) <= PARITY_TOL):
+        raise AssertionError(f"master_batch vs master_graph: {errs}")
+    del ys
+    batch_ms = _cuda_ms(lambda: master_batch(xs, SR, FLAGSHIP))
+    print(f"master_batch [{BATCH}, {N_MAIN}, 2]: K5 {counts['cascade_scan']}"
+          f"; vs master_graph {max(errs):.3e}; device {batch_ms:.3f} ms = "
+          f"{batch_ms / BATCH:.3f} ms a track (single-track chain "
+          f"{device_chain_ms:.3f} ms)")
+    return {"counts": counts, "max_abs_err": max(errs), "device_ms": batch_ms,
+            "ms_a_track": batch_ms / BATCH,
+            "single_track_chain_ms": device_chain_ms}
+
+
+def _trace_kernels(trace_dir: str) -> list:
+    names = []
+    for entry in os.scandir(trace_dir):
+        with open(entry.path) as f:
+            events = json.load(f).get("traceEvents", [])
+        names += [e.get("name", "") for e in events
+                  if str(e.get("cat", "")).lower() == "kernel"]
+    return names
+
+
+def _profile_cli(tmp: str, src: str, compat_src: str) -> dict:
+    """(d) python -m ame_tpu_torch profile in a subprocess, quality and
+    compat multiband without LUFS, each with a torch.profiler trace."""
+    keys = {"n_samples", "sample_rate", "seconds", "mode", "runs",
+            "cold_start_s", "fetch_rtt_ms", "steady_ms", "steady_ms_min",
+            "x_realtime", "stages_ms", "stages_note", "host_rss_mb",
+            "trace_dir"}
+    runs = {"quality": (src, CLI_FLAGSHIP, {"analog_eq_width", "loudnorm",
+                                            "limiter"}, "cascade_"),
+            "compat": (compat_src, ["--mode", "compat", "--multiband",
+                                    "--no-lufs"],
+                       {"eq_width", "multiband", "limiter"}, "wedge_")}
+    out = {}
+    for mode, (path, flags, stages, kernel) in runs.items():
+        trace = os.path.join(tmp, f"profile_{mode}")
+        ((wall_s, js),) = _cli([["profile", path, "--runs",
+                                 str(PROFILE_RUNS), "--trace", trace,
+                                 *flags]])
+        rep = js[-1]
+        names = _trace_kernels(trace)
+        hits = sorted({n.split("(")[0] for n in names if kernel in n})
+        if (not keys <= set(rep) or set(rep["stages_ms"]) != stages
+                or not rep["steady_ms"] > 0 or not rep["x_realtime"] > 0
+                or rep["mode"] != mode or not hits):
+            raise AssertionError(f"profile {mode}: report {rep}, "
+                                 f"{len(names)} kernel events, {kernel}*: "
+                                 f"{hits}")
+        print(f"profile {mode}: cold_start_s {rep['cold_start_s']}, "
+              f"steady_ms {rep['steady_ms']} (host "
+              f"{rep['steady_host_ms']}), x_realtime {rep['x_realtime']}, "
+              f"stages_ms {rep['stages_ms']}, hbm_peak_mb "
+              f"{rep.get('hbm_peak_mb')}; trace {len(names)} kernel events, "
+              f"{hits}; the process {wall_s:.1f} s")
+        out[mode] = {**{k: rep.get(k) for k in (
+            "cold_start_s", "fetch_rtt_ms", "steady_ms", "steady_ms_min",
+            "steady_host_ms", "x_realtime", "stages_ms", "hbm_peak_mb")},
+            "trace_kernel_events": len(names), "trace_kernels": hits,
+            "process_s": wall_s}
+    return out
+
+
+def _evaluation() -> dict:
+    """(e) the evaluation corpora (seed 77, 4 a class, 20 s) through the
+    spectrogram image and predict_mood with the shipped weights on the
+    card: accuracy >= 0.75 for each family."""
+    from ame_tpu_torch.analysis import musicologist as M
+    from ame_tpu_torch.models import mood_cnn, oof2_corpus, oof_corpus
+    model, trained = mood_cnn.load_params(device="cuda")
+    if not trained:
+        raise AssertionError("the shipped mood weights did not load")
+    classes = mood_cnn.MOOD_CLASSES
+    out = {}
+    for family, synth in (("oof", oof_corpus.synth_track_oof),
+                          ("oof2", oof2_corpus.synth_track_oof2)):
+        rng = np.random.default_rng(EVAL_SEED)
+        conf = np.zeros((4, 4), int)
+        t0 = time.perf_counter()
+        for ci, cls in enumerate(classes):
+            for _ in range(EVAL_PER_CLASS):
+                y = synth(cls, rng, seconds=EVAL_SECONDS)
+                img = M.spectrogram_image(torch.from_numpy(
+                    np.ascontiguousarray(y[:, 0])).cuda())
+                conf[ci, classes.index(mood_cnn.predict_mood(model, img))] \
+                    += 1
+        acc = float(np.trace(conf) / conf.sum())
+        print(f"evaluation {family}: accuracy {acc:.4f} "
+              f"({time.perf_counter() - t0:.1f} s)\n{conf}")
+        if acc < EVAL_FLOOR:
+            raise AssertionError(f"{family} accuracy {acc} < {EVAL_FLOOR}")
+        out[family] = {"accuracy": acc, "confusion": conf.tolist(),
+                       "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _golden() -> dict:
+    """(f) the real-FFmpeg harness: available, or why not; where available
+    the port's loudnorm_pass1 on the card against the real filter's
+    input_i on 12 s of alternating-level program."""
+    from ame_tpu_torch.io import avfilter
+    from ame_tpu_torch.ops.loudnorm import loudnorm_pass1
+    if not avfilter.available():
+        reason = avfilter.unavailable_reason()
+        print(f"golden FFmpeg harness: unavailable: {reason}")
+        return {"available": False, "reason": reason}
+    rng = np.random.default_rng(3)
+    t = np.arange(SR * 12) / SR
+    env = np.where((t % 6) < 3, 0.08, 0.5)
+    x = env * np.sin(2 * np.pi * 220 * t) + 0.12 * env * rng.standard_normal(
+        t.size)
+    x = np.clip(np.stack([x, 0.85 * x], 1), -1, 1).astype(np.float32)
+    ff = avfilter.loudnorm_pass1(x, SR)
+    ours = loudnorm_pass1(torch.from_numpy(x).cuda(), SR)["input_i"].item()
+    err = abs(ours - ff["input_i"])
+    print(f"golden FFmpeg harness: input_i port {ours:.3f} vs ffmpeg "
+          f"{ff['input_i']:.3f} ({err:.3f} LU)")
+    if err > GOLDEN_TOL_LU:
+        raise AssertionError(f"loudnorm_pass1 vs ffmpeg: {err} LU")
+    return {"available": True, "input_i": ours, "ffmpeg_input_i":
+            ff["input_i"], "err_lu": err}
+
+
+def phase_surfaces(tmp: str, device_chain_ms: float) -> dict:
+    """Phase 16: (a) the GUI controller, (b) fleet, (c) master_batch, (d)
+    profile, (e) the evaluation corpora, (f) the golden-FFmpeg harness,
+    (g) device_memory_stats lists only the card in use."""
+    from ame_tpu_torch.utils import telemetry
+    src = os.path.join(tmp, "in.wav")                  # phase 4's
+    compat_src = os.path.join(tmp, "compat_in.wav")    # phase 8's
+    out = {}
+    for key, fn in (("gui", lambda: _gui(tmp, src)),
+                    ("fleet", lambda: _fleet(tmp, src, compat_src)),
+                    ("batch", lambda: _batch(src, device_chain_ms)),
+                    ("profile", lambda: _profile_cli(tmp, src, compat_src)),
+                    ("evaluation", _evaluation), ("golden", _golden)):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+    cards = [s["device"] for s in telemetry.device_memory_stats()]
+    if cards != ["cuda:0"]:
+        raise AssertionError(f"device_memory_stats lists {cards}")
+    out["device_memory_stats"] = cards
+    print(f"surfaces: device_memory_stats lists {cards}")
+    return out
+
+
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
     (checked against plain, timed, split by launch) and, where the package
@@ -3303,6 +3751,9 @@ def main() -> int:
         t0 = time.perf_counter()
         serve = phase_serve(tmp, main_run["chain_ms"])
         serve["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        surfaces = phase_surfaces(tmp, main_run["chain_ms"])
+        surfaces["phase_s"] = time.perf_counter() - t0
     sq, sc = stream["quality"], stream["compat"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"],
@@ -3315,7 +3766,11 @@ def main() -> int:
              "stream_compat": sc["main"]["counts"],
              "stream_compat_steady": sc["steady"]["counts"],
              "fit": fit["counts"], "train": train["counts"],
-             **{f"serve_{p}": c for p, c in serve["launches"].items()}}
+             **{f"serve_{p}": c for p, c in serve["launches"].items()},
+             "gui": surfaces["gui"]["counts"],
+             **{f"fleet_{p}": c
+                for p, c in surfaces["fleet"]["launches"].items()},
+             "master_batch": surfaces["batch"]["counts"]}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -3438,6 +3893,7 @@ def main() -> int:
                               if k not in ("reverse", "sos_grad")}}))
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

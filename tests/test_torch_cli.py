@@ -155,7 +155,8 @@ def test_module_help_in_subprocess():
     r = subprocess.run([sys.executable, "-m", "ame_tpu_torch", "--help"],
                        cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    for cmd in ("master", "analyze", "measure", "automaster", "serve"):
+    for cmd in ("master", "analyze", "measure", "automaster", "serve",
+                "gui", "profile", "fleet"):
         assert cmd in r.stdout
     r = subprocess.run([sys.executable, "-m", "ame_tpu_torch", "master",
                         "--help"], cwd=REPO, capture_output=True, text=True,
@@ -163,10 +164,61 @@ def test_module_help_in_subprocess():
     assert r.returncode == 0 and "--device {cuda,cpu}" in r.stdout
 
 
-@pytest.mark.parametrize("argv", [
-    ["gui"], ["profile", "x.wav", "--runs", "2"],
-    ["fleet", "in_dir", "out_dir", "--no-lufs"]],
-    ids=["gui", "profile", "fleet"])
-def test_unported_commands_exit_2(argv, capsys):
+def test_cli_gui_runs_the_port_gui_on_the_device(monkeypatch):
+    """gui: no display here, so run_gui is recorded, not run; the command
+    imports the port's Tk view and hands it --device."""
+    from ame_tpu_torch import gui
+    seen = []
+    monkeypatch.setattr(gui, "run_gui", lambda device: seen.append(device))
+    assert main(["gui", "--device", "cpu"]) == 0
+    assert main(["gui"]) == 0
+    assert seen == ["cpu", "cuda"]
+
+
+def test_cli_profile_on_the_cpu(track, capsys):
+    """profile --device cpu prints ame_tpu's report keys with its stage
+    names."""
+    assert main(["profile", track, "--runs", "2", "--bass", "1.5",
+                 "--device", "cpu"]) == 0
+    rep = _last_json(capsys)
+    assert {"n_samples", "cold_start_s", "steady_ms", "x_realtime",
+            "stages_ms", "host_rss_mb"} <= set(rep)
+    assert set(rep["stages_ms"]) == {"analog_eq_width", "loudnorm",
+                                     "limiter"}
+
+
+def test_cli_fleet_on_the_cpu_exits_2_on_a_failed_track(tmp_path, capsys):
+    """fleet --device cpu: exit 0 with the summary JSON when every track
+    masters; after a corrupt file joins, exit 2 and the summary counts it
+    (the finished track is skipped on resume)."""
+    src, dst = tmp_path / "in", str(tmp_path / "out")
+    src.mkdir()
+    write_wav(str(src / "a.wav"), make_test_signal("noise", 4096, SR) * 0.2,
+              SR)
+    argv = ["fleet", str(src), dst, "--no-lufs", "--bass", "1",
+            "--device", "cpu"]
+    assert main(argv) == 0
+    summary = _last_json(capsys)
+    assert summary["done"] == 1 and summary["failed"] == 0
+    assert os.path.exists(os.path.join(dst, "a_mastered.wav"))
+    (src / "b.wav").write_bytes(b"RIFFbroken")
     assert main(argv) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    summary = _last_json(capsys)
+    assert summary == {"total": 2, "done": 0, "resumed_skips": 1,
+                       "failed": 1, "manifest": summary["manifest"]}
+    with open(summary["manifest"]) as f:
+        assert json.load(f)["b.wav"]["status"] == "error"
+
+
+@pytest.mark.parametrize("cmd", ["profile", "fleet"])
+def test_cli_profile_and_fleet_default_to_the_card(cmd, track, tmp_path):
+    """Without --device the commands run on the card, and raise where
+    there is none (never a silent CPU run)."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    argv = {"profile": ["profile", track, "--runs", "1"],
+            "fleet": ["fleet", os.path.dirname(track),
+                      str(tmp_path / "out")]}[cmd]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
