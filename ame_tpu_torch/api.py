@@ -22,11 +22,15 @@ the reference's observability contract (SURVEY.md §5.5):
     goes through ``creative/art.py``'s active provider, where one is
     available, to ``<master-stem>_art.png``.
 
-``shard_time`` (one track over every card) is accepted and degrades as the
-reference's does when its sequence-parallel chain cannot run: the
-multi-device chain is not ported, so a ``Warning: time-sharding
-unavailable (...); falling back to one device.`` status is emitted and the
-track masters on ``device``. Memory is logged at the reference's milestones
+``shard_time`` masters one track over every card
+(``_master_shard_time``: ``parallel/sp_master.master_sequence_parallel_padded``
+on a mesh of every ``cuda:i``, capped by ``AME_TPU_SP_DEVICES``; with
+``device="cpu"`` the mesh is the CPU once), one such job at a time in a
+process. The degrade policy is the reference's: a malformed cap raises
+``SpConfigError``; any other failure of the sharded chain (a track it
+cannot take, such as compat loudnorm under 3.1 s) emits ``Warning:
+time-sharding unavailable (...); falling back to one device.`` and masters
+on ``device``. Memory is logged at the reference's milestones
 (``utils/telemetry.log_memory_usage``).
 
 Input is staged as int16 where the file is PCM16 (half the upload bytes)
@@ -39,6 +43,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import threading
 import traceback
 from typing import Any, Callable, Mapping
 
@@ -54,10 +59,6 @@ def _noop(*a, **k):
     pass
 
 
-_SHARD_TIME_UNAVAILABLE = ("the multi-device chain is not ported to "
-                           "ame_tpu_torch")
-
-
 def master_file(input_file: str, output_file: str,
                 settings: MasterSettings | Mapping[str, Any] | None = None,
                 status_callback: Callable[[str], None] = _noop,
@@ -66,8 +67,7 @@ def master_file(input_file: str, output_file: str,
                 shard_time: bool = False) -> dict:
     """Master one file: decode -> device graph -> encode.
 
-    ``shard_time``: accepted for the reference's signature; it degrades to
-    one device with a ``Warning:`` status (see the module docstring).
+    ``shard_time``: master over every card (see the module docstring).
 
     Returns an info dict: output path, sample_rate, n_samples and the
     loudness stats (when normalization ran)."""
@@ -126,13 +126,25 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
         x = int16_roundtrip(x)
 
     if shard_time:
-        log.warning("shard_time requested; %s", _SHARD_TIME_UNAVAILABLE)
-        status_callback(f"Warning: time-sharding unavailable "
-                        f"({_SHARD_TIME_UNAVAILABLE}); falling back to one "
-                        f"device.")
-    status_callback("Running mastering graph on device...")
-    progress_callback(1, total_steps)
-    y, info = master_graph(x, sr, settings)
+        try:
+            y, info = _master_shard_time(x, sr, settings, status_callback,
+                                         device)
+        except SpConfigError:
+            raise          # operator misconfiguration must fail loudly
+        except Exception as e:
+            # sp eligibility (track length, chunk alignment, mode) is
+            # stricter than the one-device graph's; the job must still
+            # master: degrade, don't fail
+            log.exception("shard_time master failed; degrading")
+            status_callback(f"Warning: time-sharding unavailable ({e}); "
+                            f"falling back to one device.")
+            shard_time = False
+        else:
+            progress_callback(1, total_steps)
+    if not shard_time:
+        status_callback("Running mastering graph on device...")
+        progress_callback(1, total_steps)
+        y, info = master_graph(x, sr, settings)
     progress_callback(num_chunks + 3, total_steps)
     log_memory_usage("After Graph")
 
@@ -149,6 +161,54 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
     out = {"output_file": output_file, "sample_rate": sr, "n_samples": n}
     out.update({k: float(v) for k, v in info.items()})
     return out
+
+
+class SpConfigError(Exception):
+    """Operator misconfiguration of the sp pool: never swallowed by the
+    shard_time degrade path (unlike a track the sharded chain cannot
+    take)."""
+
+
+_shard_time_lock = threading.Lock()
+
+
+def _sp_devices(device: torch.device) -> list:
+    """The sp pool: every card (``device`` on a card), capped by
+    ``AME_TPU_SP_DEVICES`` (0 or unset: all), or the CPU once."""
+    if device.type == "cpu":
+        return [device]
+    from ame_tpu_torch.device import resolve_device
+    resolve_device(device, "time-sharded mastering")
+    devs = [torch.device(f"cuda:{i}")
+            for i in range(torch.cuda.device_count())]
+    cap_env = os.environ.get("AME_TPU_SP_DEVICES", "0")
+    try:
+        cap = int(cap_env)
+    except ValueError:
+        raise SpConfigError(
+            f"AME_TPU_SP_DEVICES must be an integer device count, got "
+            f"{cap_env!r}") from None
+    return devs[:cap] if cap > 0 else devs
+
+
+def _master_shard_time(x: torch.Tensor, sr: int, settings: MasterSettings,
+                       status_callback, device: torch.device):
+    """One track over every device of the sp pool (the padded sp chain).
+    A process lock serializes shard_time masters: two all-device jobs
+    would only contend for the same cards. Returns (y on the pool's first
+    device, info)."""
+    from ame_tpu_torch.parallel.mesh import make_mesh
+    from ame_tpu_torch.parallel.sp_master import (
+        master_sequence_parallel_padded)
+
+    devs = _sp_devices(device)
+    status_callback(f"Running time-sharded mastering graph over "
+                    f"{len(devs)} devices...")
+    with _shard_time_lock:
+        # the sp wrapper pads to its own shard / hop / chunk granule and
+        # masks the measurement with the true length
+        return master_sequence_parallel_padded(
+            x, sr, settings, make_mesh({"sp": len(devs)}, devices=devs))
 
 
 def export_mp3_sidecar(wav_path: str,

@@ -77,8 +77,10 @@ def _add_master_args(p: argparse.ArgumentParser) -> None:
                         "reference parity)")
     p.add_argument("--mp3", action="store_true", help="also export MP3")
     p.add_argument("--shard-time", action="store_true",
-                   help="distribute this track over every card (not ported: "
-                        "degrades to one card with a warning)")
+                   help="distribute this track over every card "
+                        "(AME_TPU_SP_DEVICES caps them; a track the sharded "
+                        "chain cannot take masters on one card after a "
+                        "warning)")
 
 
 def _settings_from_args(args) -> dict:

@@ -79,7 +79,8 @@ def _stage_eq_width_compat(x, bass, mid_cut, presence, treble, sample_rate,
 
 
 def _stage_multiband_compat(x, threshs, ratios, sample_rate, chunk_len=None):
-    return mb.multiband_compat(x, sample_rate, threshs, ratios, chunk_len)
+    return mb.multiband_compat(x, sample_rate, threshs, ratios,
+                               chunk_len=chunk_len)
 
 
 def _stage_multiband_quality(x, threshs, ratios, sample_rate, mb_edges=None):

@@ -1,12 +1,13 @@
 """Multiband compression (PyTorch port of ``ame_tpu/graph/multiband.py``).
 
-Compat (``_crossover_compat``, ``multiband_compat`` with ``exact=True``):
-the reference wiring (audio_mastering_engine.py:299-309): order-4
-Butterworth low (250 Hz) and high (4 kHz) bands, a subtractive mid
-(mid = full − low − high, quirk Q4), per-band int16 quantization (Q5), exact
-pydub compression of the three bands in one gain-engine pass, and saturating
-``overlay`` adds (Q7). The two crossover filters are two ``sosfilt`` calls
-(the JAX package fuses them into one tile-conv bank). With ``chunk_len``
+Compat (``_crossover_compat``, ``multiband_compat``): the reference wiring
+(audio_mastering_engine.py:299-309): order-4 Butterworth low (250 Hz) and
+high (4 kHz) bands, a subtractive mid (mid = full − low − high, quirk Q4),
+per-band int16 quantization (Q5), exact pydub compression of the three
+bands in one gain-engine pass (``exact=False``: the clamp-approximation
+``compressor.pydub_compress_fast`` a band), and saturating ``overlay`` adds
+(Q7). The two crossover filters are two ``sosfilt`` calls (the JAX package
+fuses them into one tile-conv bank). With ``chunk_len``
 (chunked compat, Q6) the filters, the detectors and the gain state restart
 at every chunk.
 
@@ -43,16 +44,35 @@ def _crossover_compat(x: torch.Tensor, sample_rate: float,
     return low, mid, high
 
 
+def _compress_band_fast(band_int: torch.Tensor, sample_rate: float,
+                        thresh: float, ratio: float,
+                        chunk_len: int | None) -> torch.Tensor:
+    """``compressor.pydub_compress_fast`` on one int16-valued band, each
+    chunk a fresh call when ``chunk_len`` is given."""
+    if chunk_len is None:
+        return compressor.pydub_compress_fast(band_int, sample_rate, thresh,
+                                              ratio)
+    return torch.cat([compressor.pydub_compress_fast(
+        band_int[i:i + chunk_len], sample_rate, thresh, ratio)
+        for i in range(0, band_int.shape[0], chunk_len)])
+
+
 def multiband_compat(x: torch.Tensor, sample_rate: float, threshs,
-                     ratios, chunk_len: int | None = None) -> torch.Tensor:
+                     ratios, exact: bool = True,
+                     chunk_len: int | None = None) -> torch.Tensor:
     """x: [N, 2] int16-grid float audio. threshs / ratios: three per-band
-    values (host floats or a tensor). Returns int16-grid float audio
+    values (host floats or a tensor). ``exact`` False compresses each band
+    with the clamp-approximation ``compressor.pydub_compress_fast``
+    instead of the exact gain engine. Returns int16-grid float audio
     (value / 32768)."""
     low, mid, high = _crossover_compat(x, sample_rate, chunk_len)
     band_ints = [quantize.float_to_int16(b) for b in (low, mid, high)]
     ths = [float(threshs[g]) for g in range(3)]
     ras = [float(ratios[g]) for g in range(3)]
-    if chunk_len is None:
+    if not exact:
+        outs = [_compress_band_fast(band_ints[g], sample_rate, ths[g],
+                                    ras[g], chunk_len) for g in range(3)]
+    elif chunk_len is None:
         outs = compressor.pydub_compress_exact_multi(band_ints, sample_rate,
                                                      ths, ras)
     else:

@@ -17,7 +17,11 @@ audio_mastering_engine.py:306-308):
   * output = trunc(int_sample · 10^(−att/20)) saturated to int16, applied
     only where att != 0.
 
-The clamp-approximation ``pydub_compress_fast`` is not ported (ROADMAP.md).
+The clamp-approximation ``pydub_compress_fast`` (``_clip_combine``,
+``_pydub_gain_fast``) takes the gain branch from the detector instead of
+the state, which makes the walk associative; it is plain torch, as it is
+plain XLA in ``ame_tpu``, and ``graph/multiband.multiband_compat(
+exact=False)`` reaches it.
 """
 
 from __future__ import annotations
@@ -148,6 +152,87 @@ def pydub_compress_exact_multi_chunked(bands, sample_rate: float, threshs,
                               release_ms * sample_rate / 1000.0, chunk_len)
     return [_apply_attenuation_int(bands[g], atts[g])
             for g in range(len(bands))]
+
+
+# ---------------------------------------------------------------------------
+# Fast associative path (clamped-accumulator algebra)
+# ---------------------------------------------------------------------------
+
+def _clip_combine(e1, e2):
+    """Compose f1 then f2 where f(g) = min(hi, max(lo, g + d)), lo <= hi.
+
+    f2(f1(g)) = min(hi', max(lo', g + d1 + d2)) with
+      hi' = min(h2, max(l2, h1 + d2))   (= median(l2, h1+d2, h2))
+      lo' = max(l2, l1 + d2), re-clamped to hi' so a degenerate
+            composition (lo > hi == constant function) stays canonical.
+    Exact function composition, so associative."""
+    d1, lo1, hi1 = e1
+    d2, lo2, hi2 = e2
+    hi = torch.minimum(hi2, torch.maximum(lo2, hi1 + d2))
+    lo = torch.minimum(torch.maximum(lo2, lo1 + d2), hi)
+    return d1 + d2, lo, hi
+
+
+def _pydub_gain_fast(above: torch.Tensor, max_att: torch.Tensor,
+                     attack_frames: float,
+                     release_frames: float) -> torch.Tensor:
+    """The pydub gain recurrence with the branch taken from the detector
+    (``above``: rms over the threshold) instead of the state: an attacking
+    step is clip(g + m/attack, 0, m), a releasing one clip(g - m/release,
+    0, inf). Each step is a clip map, and clip maps compose
+    (``_clip_combine``), so the walk is a blocked Kogge-Stone scan over
+    blocks of up to 2^16 samples plus a sequential carry over the block
+    ends. max_att [N] -> att [N]."""
+    inc = _div(max_att, attack_frames)
+    dec = _div(max_att, release_frames)
+    inf = float("inf")
+    d = torch.where(above, inc, -dec)
+    lo = torch.zeros_like(max_att)
+    hi = torch.where(above, max_att, torch.full_like(max_att, inf))
+
+    n = d.shape[0]
+    L = 1 << min(16, max(n - 1, 1).bit_length())
+    nb = -(-n // L)
+
+    def blk(x, fill):
+        return torch.nn.functional.pad(x, (0, nb * L - n),
+                                       value=fill).reshape(nb, L)
+
+    def shift(x, k, fill):
+        return torch.nn.functional.pad(x[:, :L - k], (k, 0), value=fill)
+
+    D, Lo, Hi = blk(d, 0.0), blk(lo, -inf), blk(hi, inf)
+    s = 1
+    while s < L:
+        e1 = (shift(D, s, 0.0), shift(Lo, s, -inf), shift(Hi, s, inf))
+        D, Lo, Hi = _clip_combine(e1, (D, Lo, Hi))
+        s *= 2
+    # the attenuation entering each block (g_{-1} = 0)
+    g = max_att.new_zeros(())
+    starts = []
+    for b in range(nb):
+        starts.append(g)
+        g = torch.minimum(torch.maximum(g + D[b, -1], Lo[b, -1]), Hi[b, -1])
+    Gpre = torch.stack(starts)
+    att = torch.minimum(torch.maximum(Gpre[:, None] + D, Lo), Hi)
+    return att.reshape(nb * L)[:n]
+
+
+def pydub_compress_fast(x_int: torch.Tensor, sample_rate: float,
+                        threshold_db: float, ratio: float,
+                        attack_ms: float = 5.0,
+                        release_ms: float = 50.0) -> torch.Tensor:
+    """pydub compression of one [N, C] int16-valued band with the
+    clamp-approximation gain walk (``_pydub_gain_fast``): associative, no
+    sequential loop over samples, and not exact where the state crosses
+    the detector's max-attenuation while the detector stays above its
+    threshold. Plain torch."""
+    rms, max_att, thresh_rms = pydub_detector(
+        x_int, sample_rate, threshold_db, ratio, attack_ms)
+    att = _pydub_gain_fast(rms > thresh_rms, max_att,
+                           attack_ms * sample_rate / 1000.0,
+                           release_ms * sample_rate / 1000.0)
+    return _apply_attenuation_int(x_int, att)
 
 
 # ---------------------------------------------------------------------------

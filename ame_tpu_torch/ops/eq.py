@@ -13,7 +13,10 @@ with order-2 Butterworth shelf cores and the order-4 reference bandpass
 zero-gain band is skipped on the host, as the reference returns its input
 before filtering (engine:284, 291). ``chunk_len`` (chunked compat, quirk
 Q6) runs the cores with their state reset every that many samples
-(``_run_sos``: ``sosfilt_chunked``).
+(``_run_sos``: ``sosfilt_chunked``). ``run`` replaces the one-device
+filter-and-blend (``_run_blend``): the sequence-parallel chain passes one
+that filters across its shards (``parallel/sp_compat._run_shards``), so
+both chains share these designs and this wiring.
 
 Quality half: ``apply_eq_quality`` with the RBJ closed forms of
 ``_rbj_shelf_coeffs_jnp`` / ``_rbj_peaking_coeffs_jnp``, designed in float64
@@ -24,6 +27,8 @@ forms in float32 torch ops instead (``_rbj_shelf_coeffs_t``,
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -66,47 +71,56 @@ def _run_sos(sos, x: torch.Tensor, chunk_len: int | None) -> torch.Tensor:
     return sosfilt_chunked(sos, x, chunk_len)
 
 
+def _run_blend(sos, x: torch.Tensor, blend, chunk_len: int | None = None):
+    """The one-device runner of a compat filter: blend(x, the cascade over
+    x)."""
+    return blend(x, _run_sos(sos, x, chunk_len))
+
+
 def apply_shelf_compat(x: torch.Tensor, sample_rate: float,
                        cutoff_hz: float, gain_db: float, filter_type: str,
-                       chunk_len: int | None = None) -> torch.Tensor:
+                       chunk_len: int | None = None, run=None):
     """Reference apply_shelf_filter (engine:283-289): order-2 Butterworth
     LP/HP core (cutoff clamped below Nyquist) + compat blend; gain 0 is a
-    no-op."""
+    no-op. ``run(sos, x, blend)`` defaults to ``_run_blend``."""
     if gain_db == 0:
         return x
     cutoff_norm = min(cutoff_hz / (0.5 * sample_rate), 0.999999)
     sos = design.ba_to_sos_biquad(*design.butter_ba(2, cutoff_norm,
                                                     filter_type))
-    return shelf_blend_compat(x, _run_sos(sos, x, chunk_len), gain_db)
+    run = run or functools.partial(_run_blend, chunk_len=chunk_len)
+    return run(sos, x, lambda v, f: shelf_blend_compat(v, f, gain_db))
 
 
 def apply_peak_compat(x: torch.Tensor, sample_rate: float, center_hz: float,
                       gain_db: float, q: float = C.PEAK_Q,
-                      chunk_len: int | None = None) -> torch.Tensor:
+                      chunk_len: int | None = None, run=None):
     """Reference apply_peak_filter (engine:290-298): order-4 bandpass core
-    (edge clamps Q14) + additive blend; gain 0 is a no-op."""
+    (edge clamps Q14) + additive blend; gain 0 is a no-op. ``run`` as in
+    ``apply_shelf_compat``."""
     if gain_db == 0:
         return x
-    band = _run_sos(design.reference_peak_band_sos(sample_rate, center_hz, q),
-                    x, chunk_len)
-    return peak_blend_compat(x, band, gain_db)
+    run = run or functools.partial(_run_blend, chunk_len=chunk_len)
+    return run(design.reference_peak_band_sos(sample_rate, center_hz, q), x,
+               lambda v, b: peak_blend_compat(v, b, gain_db))
 
 
 def apply_eq_compat(x: torch.Tensor, sample_rate: float, bass_db: float,
                     mid_cut_db: float, presence_db: float, treble_db: float,
-                    chunk_len: int | None = None) -> torch.Tensor:
+                    chunk_len: int | None = None, run=None):
     """The reference 4-band chain (engine:277-281): low shelf 250 Hz ->
     peak 1 kHz (mid_cut NEGATED, quirk Q3) -> peak 4 kHz -> high shelf
     8 kHz. Both channels ride one filter call; ``chunk_len`` resets the
-    filters' state every that many samples (chunked compat)."""
+    filters' state every that many samples (chunked compat); ``run`` as in
+    ``apply_shelf_compat``."""
     x = apply_shelf_compat(x, sample_rate, C.BASS_SHELF_HZ, bass_db, "low",
-                           chunk_len)
+                           chunk_len, run)
     x = apply_peak_compat(x, sample_rate, C.MID_PEAK_HZ, -mid_cut_db,
-                          C.PEAK_Q, chunk_len)
+                          C.PEAK_Q, chunk_len, run)
     x = apply_peak_compat(x, sample_rate, C.PRESENCE_PEAK_HZ, presence_db,
-                          C.PEAK_Q, chunk_len)
+                          C.PEAK_Q, chunk_len, run)
     return apply_shelf_compat(x, sample_rate, C.TREBLE_SHELF_HZ, treble_db,
-                              "high", chunk_len)
+                              "high", chunk_len, run)
 
 
 def eq_quality_sos(sample_rate: float, bass_db: float, mid_cut_db: float,

@@ -35,6 +35,8 @@ walk ``_gain_scan``.
 All three kernels and the plain versions round every product and sum
 separately (no FMA), so they agree bit for bit.
 
+``pydub_gain_ends`` returns the end state only: the engine's last row.
+
 ``pydub_gain_chunked`` (chunked compat, quirk Q6) resets the state at every
 chunk start: its chunks are padded to whole 32-sample groups and the engine
 takes one flag a group, which K3 and K2's reset route (``gain_jacobi`` with
@@ -480,6 +482,19 @@ def pydub_gain_multi(ms, attack_frames: float, release_frames: float,
             else torch.as_tensor(init, dtype=torch.float32, device=m.device))
     att = _gain_engine(m.contiguous(), init, inv_a, inv_r)
     return [att[g] for g in range(G)]
+
+
+def pydub_gain_ends(ms, attack_frames: float, release_frames: float,
+                    init=None) -> torch.Tensor:
+    """The attenuation state after the last sample only, [G] (``ame_tpu``'s
+    carry-sweep function; the port's relaxation,
+    ``parallel/sp_compat._pydub_gain_sp``, reads the same row from each
+    sweep's full output). ms: list of G same-length [N] float32 tensors;
+    init: [G] state entering the first sample (default zeros). The last
+    row of ``pydub_gain_multi``: K2 from ``init`` on the card, bit-equal
+    to the sequential walk."""
+    att = pydub_gain_multi(ms, attack_frames, release_frames, init)
+    return torch.stack([a[-1] for a in att])
 
 
 def pydub_gain_chunked(ms, attack_frames: float, release_frames: float,

@@ -22,15 +22,27 @@ from ame_tpu_torch.ops import eq
 from ame_tpu_torch.ops.scan_iir import sosfilt
 
 
+def analog_drive(x: torch.Tensor, character_percent) -> torch.Tensor:
+    """tanh(x * drive), drive = 1 + 0.5 * percent/100."""
+    return torch.tanh(x * (1.0 + character_percent / 100.0 * 0.5))
+
+
+def analog_shelves_compat(y, sample_rate: float, character_percent: float,
+                          chunk_len: int | None = None, run=None):
+    """The compat shelves after the drive; ``run`` as in
+    ``eq.apply_shelf_compat``."""
+    factor = character_percent / 100.0
+    y = eq.apply_shelf_compat(y, sample_rate, C.ANALOG_LOW_SHELF_HZ,
+                              factor * 1.0, "low", chunk_len, run)
+    return eq.apply_shelf_compat(y, sample_rate, C.ANALOG_HIGH_SHELF_HZ,
+                                 factor * 1.5, "high", chunk_len, run)
+
+
 def analog_character_compat(x: torch.Tensor, sample_rate: float,
                             character_percent: float,
                             chunk_len: int | None = None) -> torch.Tensor:
-    factor = character_percent / 100.0
-    y = torch.tanh(x * (1.0 + factor * 0.5))
-    y = eq.apply_shelf_compat(y, sample_rate, C.ANALOG_LOW_SHELF_HZ,
-                              factor * 1.0, "low", chunk_len)
-    return eq.apply_shelf_compat(y, sample_rate, C.ANALOG_HIGH_SHELF_HZ,
-                                 factor * 1.5, "high", chunk_len)
+    return analog_shelves_compat(analog_drive(x, character_percent),
+                                 sample_rate, character_percent, chunk_len)
 
 
 def analog_sos(sample_rate: float, character_percent: float) -> np.ndarray:
@@ -59,8 +71,7 @@ def analog_character_quality(x: torch.Tensor, sample_rate: float,
                              character_percent) -> torch.Tensor:
     """character_percent: a float (host design) or a tensor
     (differentiable design)."""
-    drive = 1.0 + character_percent / 100.0 * 0.5
-    y = torch.tanh(x * drive)
+    y = analog_drive(x, character_percent)
     sos = (analog_sos_t(sample_rate, character_percent)
            if isinstance(character_percent, torch.Tensor)
            else analog_sos(sample_rate, character_percent))

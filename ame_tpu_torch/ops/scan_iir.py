@@ -4,8 +4,10 @@
 Port of ``ame_tpu/ops/scan_iir.py``: ``_state_space_np`` (the float64 host
 construction of the coupled-form cascade state space), the scipy zi/zf
 transforms of ``_zi_transforms``, ``biquad_scan`` (one biquad with a
-carried zi: the streaming attack smoother) and ``sosfilt_chunked`` (chunked
-compat's per-chunk state resets). The JAX module's scan engines are not
+carried zi: the streaming attack smoother), ``lfilter_scan``,
+``zero_input_response`` (the sequence-parallel filter's superposition
+term) and ``sosfilt_chunked`` (chunked compat's per-chunk state resets).
+The JAX module's scan engines are not
 ported: in the port a cascade runs through one of two implementations of the
 same math,
 
@@ -355,6 +357,34 @@ def biquad_scan(x: torch.Tensor, coeffs, zi=None):
     sos = np.asarray(coeffs, np.float64).reshape(1, 6)
     y, zf = sosfilt(sos, x, None if zi is None else zi[None])
     return y, zf[0]
+
+
+def lfilter_scan(b, a, x: torch.Tensor) -> torch.Tensor:
+    """scipy ``lfilter(b, a, x)`` along axis 0 for order <= 2 transfer
+    functions (the reference's ba-form calls are order 2,
+    audio_mastering_engine.py:285): one ``biquad_scan``."""
+    b = np.asarray(b, np.float64)
+    a = np.asarray(a, np.float64)
+    b = b / a[0]
+    a = a / a[0]
+    if len(b) > 3 or len(a) > 3:
+        raise NotImplementedError("lfilter_scan supports order <= 2; use SOS")
+    coeffs = np.concatenate([np.pad(b, (0, 3 - len(b))),
+                             np.pad(a, (0, 3 - len(a)))])
+    return biquad_scan(x, coeffs)[0]
+
+
+def zero_input_response(sos, zi: torch.Tensor, n: int) -> torch.Tensor:
+    """y[0 .. n-1] of the cascade for ZERO input from the scipy-layout
+    state ``zi`` [k, C, 2]: the superposition term that turns a zero-state
+    result into the result from ``zi`` (``parallel/sequence.py`` adds it to
+    each shard's zero-state output). The cascade run over zeros from zi,
+    on zi's device: the kernel with a carried zi on the card, the tile-conv
+    on the CPU. Host coefficients only."""
+    if isinstance(sos, torch.Tensor):
+        raise NotImplementedError("zero_input_response takes host "
+                                  "coefficients")
+    return sosfilt(sos, zi.new_zeros((n, zi.shape[1])), zi)[0]
 
 
 def sosfilt_chunked(sos, x: torch.Tensor, chunk_len: int) -> torch.Tensor:

@@ -11,7 +11,10 @@ B times in a row on ``device`` (the card unless the caller asks for the
 CPU), so a batch costs B single-track chains. Capturing the chain in a
 CUDA graph is the later lever.
 
-The multi-device mesh (ROADMAP A.9) is not ported: ``mesh=`` raises.
+With ``mesh`` (``parallel/mesh.make_mesh``, a 'data' axis of D devices)
+the batch is split into D contiguous groups, group d mastered on the axis's
+device d; the tracks are launched device by device in turn, so D cards
+overlap, and the results come back in order on the axis's first device.
 """
 
 from __future__ import annotations
@@ -30,27 +33,38 @@ def master_batch(xs, sample_rate: float, settings, mesh=None,
     """Master a batch of tracks in quality mode.
 
     Args:
-      xs: [B, N, 2] float32 (tensor or numpy); moved to ``device``.
+      xs: [B, N, 2] float32 (tensor or numpy).
       settings: MasterSettings or reference settings dict; the quality
         chain runs whatever its ``mode``, as ``ame_tpu``'s does.
-      mesh: not ported; anything but None raises NotImplementedError.
-      device: "cuda" (default; raises without a card) or "cpu", which runs
-        the plain PyTorch versions of the kernels.
+      mesh: None, or a Mesh with a 'data' axis whose size divides B: the
+        batch is split over that axis's devices (``device`` is then not
+        used).
+      device: without a mesh, "cuda" (default; raises without a card) or
+        "cpu", which runs the plain PyTorch versions of the kernels.
 
-    Returns mastered [B, N, 2] on ``device``.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "master_batch(mesh=...): the multi-device paths (ROADMAP A.9) "
-            "are not ported to ame_tpu_torch; pass mesh=None to master the "
-            "batch on one device")
-    dev = resolve_device(device, "master_batch")
+    Returns mastered [B, N, 2] on ``device`` (with a mesh: on the data
+    axis's first device)."""
     if isinstance(settings, dict):
         settings = MasterSettings.from_dict(settings)
     settings = dataclasses.replace(settings, mode="quality")
-    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    xs = torch.as_tensor(xs, dtype=torch.float32)
     if xs.ndim != 3 or xs.shape[-1] != 2:
         raise ValueError(f"master_batch takes [B, N, 2], got "
                          f"{tuple(xs.shape)}")
-    return torch.stack([master_graph(x, sample_rate, settings)[0]
-                        for x in xs])
+    if mesh is None:
+        xs = xs.to(resolve_device(device, "master_batch"))
+        return torch.stack([master_graph(x, sample_rate, settings)[0]
+                            for x in xs])
+    devs = mesh.axis_devices("data")
+    B, D = xs.shape[0], len(devs)
+    if B % D:
+        raise ValueError(f"a batch of {B} does not split over the {D} "
+                         f"devices of the mesh's 'data' axis")
+    per = B // D
+    groups = [xs[d * per:(d + 1) * per].to(dev) for d, dev in enumerate(devs)]
+    ys = [[None] * per for _ in devs]
+    for i in range(per):
+        for d in range(D):
+            ys[d][i] = master_graph(groups[d][i], sample_rate, settings)[0]
+    dev0 = devs[0]
+    return torch.stack([y.to(dev0) for group in ys for y in group])

@@ -201,11 +201,39 @@ failure raises and the script exits non-zero without the final line:
      (reported, not failed); where available loudnorm_pass1 on the card
      within 0.1 LU of the real filter's input_i; (g) device_memory_stats
      lists only cuda:0;
- 17. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+ 17. time-sharded mastering (parallel/sp_master.py, sp_compat.py,
+     sequence.py, bands.py, batch.py's mesh route, api's shard_time), at
+     475 x 4 x 4410 = 8 379 000 samples (a 4-shard shard holds whole
+     100 ms hops), on meshes of D = 1 and D = 4 shards, all on cuda:0:
+     (a) bench.py's sp_quality (flagship + multiband, on 0.15 N(0,1) noise
+     with a 3x loud second across the first D = 4 boundary, so the halo'd
+     limiter works) and sp_compat (unchunked compat multiband, on the
+     compat main path's input), and the flagship chunked compat through
+     the padded wrapper: each against master_graph on the same input
+     (tests/test_parallel.py's tolerances: quality info 2e-2, output atol
+     3e-4 / rtol 2e-3; compat 5e-2, 2e-3 / 5e-3; linear_mode equal), the
+     launches held to PERF.md's prediction (a sequence-parallel cascade
+     2D - 1 K5, a chunk-local one D; K1 only at D = 1; K2 from 1 .. D
+     engine sweeps, no K3), device times beside master_graph's; (b) the
+     gain relaxation at D = 4 on the compat band detector's [3, N] output
+     bit-equal to the one-track engine, and K3 and K2 from a non-zero init
+     (the first shard's end state) at a shard's shape [3, 2 094 750]: K2's
+     full sweep from the relaxed carries bit-equal to its plain version,
+     K3's starts bit-equal to that sweep's states, pydub_gain_ends equal
+     to its end; (c) K5 with a carried zi on zeros (the zero-input
+     response) at a shard's shape, the k = 6 pre cascade at C = 2 and the
+     smoother at C = 3, within 1e-4 of the plain version, timed; (d)
+     master_batch over a 2-device data mesh bit-equal to mesh=None;
+     multiband_band_parallel at 3 bands against multiband_quality_n (atol
+     3e-5, rtol 1e-4); (e) master_file(shard_time=True) on cuda:0: the
+     time-sharded status and no degrade warning, K5 2, within 2e-3 of the
+     unsharded master;
+ 18. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
      a {"musicologist": ...} line, a {"streaming": ...} line, a {"fit":
      ...} line, a {"train": ...} line, a {"serve": ...} line, a
-     {"surfaces": ...} line, then the last line {"ok": true, "device":
-     {"platform": "gpu", "kind": ..., "count": ...}}.
+     {"surfaces": ...} line, a {"sharded": ...} line, then the last line
+     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+     ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
 script stops after phase 1 with a non-zero exit and prints no result.
@@ -219,6 +247,9 @@ bands) and analyze_waveform on 30 s only, with the ame_tpu_torch package
 under ROOT (default: this checkout; e.g. an unpacked parent commit, which
 may lack chunked compat, multiband or the Musicologist: those parts are
 then left out), so that two trees can be timed in turns on one card.
+``python3 chip_smoke.py --sharded-times [ROOT]`` times phase 17's sharded
+masters (each path at D = 1 and 4, twice, with its launches) of the
+ame_tpu_torch package under ROOT, in the same way.
 
 Every kernel's launch count is set to 0 just before each main path and read
 just after it. Times are medians of 3 warm runs, taken with
@@ -3617,6 +3648,345 @@ def phase_surfaces(tmp: str, device_chain_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: time-sharded mastering (parallel/sp_master.py, sp_compat.py,
+# bands.py, batch.py's mesh route, api.shard_time)
+# ---------------------------------------------------------------------------
+
+N_SP = 475 * 4 * 4410          # 8 379 000: a D = 4 shard holds whole hops
+SP_MESHES = (1, 4)             # shards, all on cuda:0
+SP_QUALITY = dict(bass_boost=2.0, presence_boost=1.5, width=1.2,
+                  analog_character=20.0, multiband=True, lufs=-14.0,
+                  mode="quality")               # bench.py:341-344
+SP_COMPAT = dict(bass_boost=2.0, width=1.2, multiband=True, lufs=-14.0,
+                 mode="compat")                 # bench.py:345-347
+SP_PATHS = {"sp_quality": SP_QUALITY, "sp_compat": SP_COMPAT,
+            "sp_compat_chunked": COMPAT_CHUNKED}
+# tests/test_parallel.py's tolerances (:161-165, :365-369): the info keys
+# held, their tolerance, atol, rtol
+SP_TOL = {"quality": (("input_i", "input_lra", "input_tp", "gain_db"), 2e-2,
+                      3e-4, 2e-3),
+          "compat": (("input_i", "input_thresh", "gain_db", "target_offset"),
+                     5e-2, 2e-3, 5e-3)}
+SP_FILE_TOL = 2e-3             # tests/test_parallel.py:455-458
+BAND_EDGES = (250.0, 4000.0)   # 3 bands, one a device
+BAND_TOL = (3e-5, 1e-4)        # tests/test_parallel.py:253
+
+
+def _sp_inputs():
+    """The quality input (tests/test_parallel.py:151-155 at N_SP: 0.15
+    N(0,1) noise, a 220 Hz tone on the left, a 3x loud second across the
+    first D = 4 shard boundary, clipped at 0.9) and the compat main path's
+    input at N_SP, both on the int16 grid, on the card."""
+    rng = np.random.default_rng(3)
+    t = np.arange(N_SP) / SR
+    x = 0.15 * rng.standard_normal((N_SP, 2))
+    x[:, 0] += 0.1 * np.sin(2 * np.pi * 220.0 * t)
+    b = N_SP // 4
+    x[b - SR // 2: b + SR // 2] *= 3.0
+    out = []
+    for a in (np.clip(x, -0.9, 0.9), _compat_input(N_SP)):
+        out.append(torch.from_numpy(
+            (np.trunc(np.clip(a, -1, 1) * 32767.0) / 32768.0).astype(
+                np.float32)).cuda())
+    return out
+
+
+def _sp_predicted(path: str, D: int) -> dict:
+    """The launches of one sharded master (PERF.md, PR 12's prediction):
+    a sequence-parallel cascade makes 2D - 1 K5 launches (D zero-state, D -
+    1 zero-input responses), a chunk-local one D. Exact counts; K2 (1 .. D
+    relaxation sweeps of one engine call each) is held to a range."""
+    sp = 2 * D - 1
+    if path == "sp_quality":    # pre k=6, 3 bands, smoother, K-weighting
+        return {"cascade_scan": 6 * sp, "wedge_env": 0, "gain_jacobi": 0,
+                "gain_p1": 0, "gain_p2": 0}
+    if path == "sp_compat":     # bass shelf, 2 crossovers, 2 K-weightings
+        return {"cascade_scan": 5 * sp, "wedge_env": 2 if D == 1 else 0,
+                "gain_p1": 0, "gain_jacobi": (1, D * 17), "gain_p2": 0}
+    # chunked: 6 chunk-local cascades a shard, 2 sp K-weightings
+    return {"cascade_scan": 6 * D + 2 * sp, "wedge_env": 2 if D == 1 else 0,
+            "gain_p1": 0, "gain_jacobi": (D, D * 17), "gain_p2": 0}
+
+
+def _hold_counts(label: str, counts: dict, want: dict) -> None:
+    for k, v in want.items():
+        lo, hi = v if isinstance(v, tuple) else (v, v)
+        if not lo <= counts[k] <= hi:
+            raise AssertionError(f"{label}: {k} launched {counts[k]} times, "
+                                 f"predicted {v} ({counts})")
+    if counts.get("sos_grad") or counts.get("cascade_scan_reverse"):
+        raise AssertionError(f"{label}: backward kernels launched {counts}")
+
+
+def _sp_paths(xq: torch.Tensor, xc: torch.Tensor) -> dict:
+    """Each sharded master (quality, compat, chunked compat through the
+    padded wrapper) at D = 1 and 4 against master_graph on the same input:
+    info, linear_mode, output within tests/test_parallel.py's tolerances;
+    launches held to the prediction; device times beside master_graph's."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.parallel.mesh import make_mesh
+    from ame_tpu_torch.parallel.sp_master import (
+        master_sequence_parallel_padded)
+    out = {}
+    for path, sdict in SP_PATHS.items():
+        s = MasterSettings(**sdict)
+        x = xq if s.mode == "quality" else xc
+        keys, info_tol, atol, rtol = SP_TOL[s.mode]
+        y1, i1 = master_graph(x, SR, s)
+        single_ms = _cuda_ms(lambda: master_graph(x, SR, s))
+        row = {"master_graph_ms": single_ms}
+        for D in SP_MESHES:
+            mesh = make_mesh({"sp": D}, devices=["cuda:0"] * D)
+
+            def run():
+                return master_sequence_parallel_padded(x, SR, s, mesh)
+            _zero_counts()
+            y, info = run()
+            counts = _read_counts()
+            label = f"{path} D={D}"
+            _hold_counts(label, counts, _sp_predicted(path, D))
+            err = (y - y1).abs()
+            bad = (err > atol + rtol * y1.abs()).sum().item()
+            dinfo = {k: abs(float(info[k]) - float(i1[k])) for k in info}
+            if (y.shape != x.shape or not torch.isfinite(y).all().item()
+                    or bad or max(dinfo[k] for k in keys) > info_tol
+                    or float(info["linear_mode"]) != float(
+                        i1["linear_mode"])):
+                raise AssertionError(
+                    f"{label} vs master_graph: {bad} samples over atol "
+                    f"{atol} / rtol {rtol} (max {err.max().item():.3e}); "
+                    f"info diffs {dinfo}; linear_mode "
+                    f"{float(info['linear_mode'])} vs "
+                    f"{float(i1['linear_mode'])}")
+            del y
+            ms = _cuda_ms(run)
+            row[f"D{D}"] = {"counts": counts,
+                            "max_abs_err": err.max().item(),
+                            "max_info_diff": max(dinfo.values()),
+                            "linear_mode": float(info["linear_mode"]),
+                            "device_ms": ms}
+            print(f"sharded {label}: launches "
+                  + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+                  + f"; vs master_graph max {err.max().item():.3e}, info "
+                  f"{max(dinfo.values()):.3e}; {ms:.3f} ms (master_graph "
+                  f"{single_ms:.3f} ms)")
+        out[path] = row
+    return out
+
+
+def _sp_gain(xc: torch.Tensor) -> dict:
+    """The gain relaxation at D = 4 on the compat band detector's [3, N]
+    output, bit-equal to the one-track engine; then K3 and K2 from a
+    non-zero init at a shard's shape: the second shard's chains from the
+    first shard's end state, K3's starts and K2's full sweep from the
+    relaxed carries each against the plain Jacobi sweep from those carries
+    (bit for bit), and pydub_gain_ends against that sweep's last state."""
+    from ame_tpu_torch.ops import pydub_gain as pg
+    from ame_tpu_torch.parallel.sp_compat import _pydub_gain_sp
+    ia, ir = pg._scal(ATTACK, RELEASE)
+    m = _band_max_att(xc)                                    # [3, N]
+    G, n = m.shape
+    one = torch.stack(pg.pydub_gain_multi(list(m), ATTACK, RELEASE))
+    sp = torch.cat(_pydub_gain_sp(list(m.T.chunk(4)), ATTACK, RELEASE)).T
+    if not torch.equal(sp, one):
+        raise AssertionError(f"_pydub_gain_sp D=4 vs the one-track engine: "
+                             f"max diff {(sp - one).abs().max().item()}")
+    del sp, one
+    ln = n // 4
+    init = pg.pydub_gain_ends(list(m[:, :ln]), ATTACK, RELEASE)
+    if not init.any().item():
+        init = torch.tensor([0.0, 1.5, 7.0], device="cuda")
+    init = init.contiguous()
+    ms = m[:, ln:2 * ln].contiguous()
+    npad = pg._pad_block(ln)
+    S = pg._select_S(npad)
+    seg_len = npad // S
+    m_t = torch.nn.functional.pad(ms, (0, npad - ln)).reshape(
+        G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
+    c_fix, ok, sweeps = pg._jacobi_carries(m_t, G, S, init, ia, ir)
+    if not ok.all().item():
+        raise AssertionError(f"the second shard's chains from init "
+                             f"{init.tolist()}: carries converged "
+                             f"{ok.tolist()} after {sweeps} sweeps")
+    c = c_fix.reshape(-1).contiguous()
+    co_k, att_k = pg.gain_jacobi_cuda(m_t, c, ia, ir, True)
+    co_p, att_p = pg.gain_jacobi_plain(m_t, c, ia, ir, True)
+    if not (torch.equal(co_k, co_p) and torch.equal(att_k, att_p)):
+        raise AssertionError(f"gain_jacobi from init {init.tolist()} vs "
+                             f"plain at [{seg_len}, {G * S}]: max diff "
+                             f"{(att_k - att_p).abs().max().item()}")
+    att = att_p.reshape(seg_len, G, S).permute(1, 2, 0).reshape(G, npad)
+    ref_starts = torch.cat([init[:, None], att[:, pg._K - 1:ln - 1:pg._K]],
+                           dim=1)
+    starts = pg.gain_p1_cuda(ms, None, init, ia, ir)
+    if not torch.equal(starts, ref_starts):
+        raise AssertionError(f"gain_p1 from init {init.tolist()} vs the "
+                             f"plain sweep's states at [{G}, {ln}]: max diff "
+                             f"{(starts - ref_starts).abs().max().item()}")
+    ends = pg.pydub_gain_ends(list(ms), ATTACK, RELEASE, init)
+    if not torch.equal(ends, att[:, ln - 1]):
+        raise AssertionError(f"pydub_gain_ends vs the plain sweep: "
+                             f"{ends.tolist()} vs {att[:, ln - 1].tolist()}")
+    p1_ms = _cuda_ms(lambda: pg.gain_p1_cuda(ms, None, init, ia, ir))
+    k2_ms = _cuda_ms(lambda: pg.gain_jacobi_cuda(m_t, c, ia, ir, True),
+                     KERNEL_CALLS)
+    b = _gain_bounds(G, ln)
+    print(f"sharded gain: _pydub_gain_sp D=4 == one-track engine bit for "
+          f"bit [3, {n}]; from init {[round(v, 4) for v in init.tolist()]} "
+          f"at [3, {ln}]: gain_jacobi ({sweeps} sweeps, converged "
+          f"{ok.tolist()}) and gain_p1 == the plain sweep bit for bit, "
+          f"pydub_gain_ends == its end; gain_p1 {p1_ms:.4f} ms, gain_jacobi "
+          f"full {k2_ms:.4f} ms")
+    return {"init": init.tolist(), "shape": [G, ln],
+            "gain_p1": {"max_abs_err": 0.0, "ms": p1_ms,
+                        "bound_ms": b["gain_p1"][0]},
+            "gain_jacobi": {"max_abs_err": 0.0, "ms": k2_ms,
+                            "sweeps": sweeps, "shape": [seg_len, G * S],
+                            "bound_ms": b["gain_jacobi"][0]}}
+
+
+def _sp_zir_rows(xq: torch.Tensor) -> list:
+    """K5 with a carried zi on zeros (the zero-input response every shard
+    after the first adds), at a D = 4 shard's shape, against its plain
+    version: the quality pre cascade (k = 6, C = 2) and the attack smoother
+    (k = 1, C = 3)."""
+    from ame_tpu_torch import config as C
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.ops.compressor import attack_sos
+    from ame_tpu_torch.parallel.sp_master import _pre_cascade_sos
+    ln = N_SP // 4
+    rows = []
+    for name, sos, cols in (
+            ("zir_pre_cascade", _pre_cascade_sos(
+                MasterSettings(**SP_QUALITY), SR), 2),
+            ("zir_attack_smoother", attack_sos(SR, C.MB_ATTACK_MS), 3)):
+        pre = (xq[:4096] if cols == 2
+               else xq[:4096, :1].abs().repeat(1, cols).contiguous())
+        rows.append(_cascade_row(name, sos, torch.zeros(
+            (ln, cols), device="cuda"), pre.contiguous()))
+    return rows
+
+
+def _sp_batch_and_bands(xq: torch.Tensor) -> dict:
+    """master_batch over a 2-device 'data' mesh (cuda:0 twice) bit-equal to
+    mesh=None; multiband_band_parallel at 3 bands (cuda:0 three times)
+    against multiband_quality_n."""
+    from ame_tpu_torch.graph.multiband import multiband_quality_n
+    from ame_tpu_torch.parallel.bands import multiband_band_parallel
+    from ame_tpu_torch.parallel.batch import master_batch
+    from ame_tpu_torch.parallel.mesh import make_mesh
+    xs = torch.stack([xq, _noise_input(N_SP, 2, 4)[0]])
+    a = master_batch(xs, SR, FLAGSHIP, mesh=make_mesh(
+        {"data": 2}, devices=["cuda:0"] * 2))
+    b = master_batch(xs, SR, FLAGSHIP)
+    if not torch.equal(a, b):
+        raise AssertionError(f"master_batch(mesh) vs mesh=None: max diff "
+                             f"{(a - b).abs().max().item()}")
+    del a, b, xs
+    th, ra = [-24.0, -20.0, -18.0], [2.0, 3.0, 4.0]
+    mesh = make_mesh({"band": 3}, devices=["cuda:0"] * 3)
+    _zero_counts()
+    y_bp = multiband_band_parallel(xq, SR, BAND_EDGES, th, ra, mesh)
+    counts = _read_counts()
+    y_1 = multiband_quality_n(xq, SR, BAND_EDGES, th, ra)
+    err = (y_bp - y_1).abs()
+    if (err > BAND_TOL[0] + BAND_TOL[1] * y_1.abs()).any().item():
+        raise AssertionError(f"multiband_band_parallel vs "
+                             f"multiband_quality_n: max {err.max().item()}")
+    bp_ms = _cuda_ms(lambda: multiband_band_parallel(xq, SR, BAND_EDGES, th,
+                                                     ra, mesh))
+    one_ms = _cuda_ms(lambda: multiband_quality_n(xq, SR, BAND_EDGES, th,
+                                                  ra))
+    print(f"sharded: master_batch over a 2-device mesh == mesh=None bit for "
+          f"bit [2, {N_SP}, 2]; band-parallel 3 bands vs multiband_quality_n "
+          f"max {err.max().item():.3e}, K5 {counts['cascade_scan']}, "
+          f"{bp_ms:.3f} ms (one device {one_ms:.3f} ms)")
+    return {"master_batch_mesh_equal": True,
+            "bands": {"counts": counts, "max_abs_err": err.max().item(),
+                      "device_ms": bp_ms, "one_device_ms": one_ms}}
+
+
+def _sp_file(tmp: str, xq: torch.Tensor) -> dict:
+    """master_file(shard_time=True) on cuda:0 (the pool: this card, D = 1)
+    against the unsharded master_file of the same WAV: no degrade warning,
+    the time-sharded status, atol 2e-3; its launches."""
+    from ame_tpu_torch.api import master_file
+    from ame_tpu_torch.io.wav import read_wav, write_wav
+    src = os.path.join(tmp, "sp_in.wav")
+    write_wav(src, xq.cpu().numpy(), SR)
+    outs, msgs = {}, []
+    counts = None
+    for sharded in (True, False):
+        dst = os.path.join(tmp, f"sp_out_{sharded}.wav")
+        _zero_counts()
+        master_file(src, dst, FLAGSHIP, msgs.append if sharded else
+                    (lambda m: None), device="cuda", shard_time=sharded)
+        if sharded:
+            counts = _read_counts()
+        outs[sharded] = read_wav(dst)[0]
+    bad = [m for m in msgs if "unavailable" in m or m.startswith(
+        ("Warning", "Error", "Failed"))]
+    if bad or not any("time-sharded mastering graph over 1 devices" in m
+                      for m in msgs):
+        raise AssertionError(f"master_file(shard_time=True): {msgs}")
+    # the flagship at D = 1: the fused pre cascade and the K-weighting
+    _hold_counts("shard_time master_file", counts,
+                 {**_sp_predicted("sp_quality", 1), "cascade_scan": 2})
+    err = float(np.abs(outs[True] - outs[False]).max())
+    if err > SP_FILE_TOL:
+        raise AssertionError(f"master_file shard_time vs one device: {err}")
+    print(f"sharded: master_file(shard_time=True) on cuda:0: no warning, "
+          f"K5 {counts['cascade_scan']}, vs unsharded max {err:.3e}")
+    return {"counts": counts, "max_abs_err": err,
+            "statuses": [m for m in msgs if "device" in m]}
+
+
+def phase_sharded(tmp: str) -> dict:
+    """Phase 17 (see the module docstring)."""
+    xq, xc = _sp_inputs()
+    out = {"n": N_SP, "paths": _sp_paths(xq, xc)}
+    out["gain"] = _sp_gain(xc)
+    out["zir"] = _sp_zir_rows(xq)
+    out.update(_sp_batch_and_bands(xq))
+    out["shard_time_file"] = _sp_file(tmp, xq)
+    return out
+
+
+def sharded_times(root: str) -> int:
+    """``--sharded-times [ROOT]``: each sharded master of phase 17 (the
+    paths of SP_PATHS at the meshes of SP_MESHES, on phase 17's inputs)
+    with the ame_tpu_torch package found under ROOT: its launches and its
+    device ms (``_cuda_ms``) twice. Checks nothing; prints one
+    {"sharded_times": ...} line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import ame_tpu_torch
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.parallel.mesh import make_mesh
+    from ame_tpu_torch.parallel.sp_master import (
+        master_sequence_parallel_padded)
+    phase_device()
+    xq, xc = _sp_inputs()
+    out = {"package": os.path.dirname(ame_tpu_torch.__file__)}
+    for path, sdict in SP_PATHS.items():
+        s = MasterSettings(**sdict)
+        x = xq if s.mode == "quality" else xc
+        for D in SP_MESHES:
+            mesh = make_mesh({"sp": D}, devices=["cuda:0"] * D)
+
+            def run():
+                return master_sequence_parallel_padded(x, SR, s, mesh)
+            _zero_counts()
+            run()
+            counts = {k: v for k, v in _read_counts().items() if v}
+            out[f"{path}_d{D}"] = {"counts": counts,
+                                   "device_ms": [_cuda_ms(run),
+                                                 _cuda_ms(run)]}
+    print(json.dumps({"sharded_times": out}))
+    return 0
+
+
 def kernel_times(root: str) -> int:
     """``--kernel-times [ROOT]``: K5 on the ten main-path cascades and Q14
     (checked against plain, timed, split by launch) and, where the package
@@ -3754,6 +4124,9 @@ def main() -> int:
         t0 = time.perf_counter()
         surfaces = phase_surfaces(tmp, main_run["chain_ms"])
         surfaces["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sharded = phase_sharded(tmp)
+        sharded["phase_s"] = time.perf_counter() - t0
     sq, sc = stream["quality"], stream["compat"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"],
@@ -3770,7 +4143,11 @@ def main() -> int:
              "gui": surfaces["gui"]["counts"],
              **{f"fleet_{p}": c
                 for p, c in surfaces["fleet"]["launches"].items()},
-             "master_batch": surfaces["batch"]["counts"]}
+             "master_batch": surfaces["batch"]["counts"],
+             **{f"{p}_d{D}": r[f"D{D}"]["counts"]
+                for p, r in sharded["paths"].items() for D in SP_MESHES},
+             "band_parallel": sharded["bands"]["counts"],
+             "shard_time_file": sharded["shard_time_file"]["counts"]}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -3790,7 +4167,7 @@ def main() -> int:
               max(max(max(r["max_abs_err_y"], r["max_abs_err_zf"])
                       for r in rows),
                   max(r["max_abs_err"] for r in chunk_rows + mb_rows
-                      + stream["k5"]["rows"]),
+                      + stream["k5"]["rows"] + sharded["zir"]),
                   stream["k5"]["chain"]["max_abs_err"]),
               sum(r["ms"] for r in quality),
               sum(r["plain_ms"] for r in quality),
@@ -3800,6 +4177,7 @@ def main() -> int:
                    "launches of one master's multiband stage together",
               per_cascade=rows, chunk_columns=chunk_rows,
               quality_multiband=mb_rows, streaming=stream["k5"],
+              sharded_zero_input=sharded["zir"],
               multiband_stage_totals={
                   p: {key: sum(r[key] * r["uses"].get(p, 0)
                                for r in mb_rows)
@@ -3835,8 +4213,10 @@ def main() -> int:
                          "sweeps_main": reset["sweeps"],
                          "full_sweep": reset["reset"]["full"],
                          "carry_sweep": reset["reset"]["carry"],
-                         "no_resets_same_input": reset["no_resets"]}},
-                 "gain_p1": {"floor": gain["p1"]["floor"]},
+                         "no_resets_same_input": reset["no_resets"]},
+                     "sharded_init": sharded["gain"]["gain_jacobi"]},
+                 "gain_p1": {"floor": gain["p1"]["floor"],
+                             "sharded_init": sharded["gain"]["gain_p1"]},
                  "gain_p2": {"one_call_ms": p2["one_call_ms"],
                              "copy_ms": p2["copy_ms"],
                              "device_ms": p2["device_ms"],
@@ -3894,6 +4274,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"surfaces": surfaces}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -3910,4 +4291,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else
                               os.path.dirname(os.path.abspath(__file__))))
+    if sys.argv[1:2] == ["--sharded-times"]:
+        sys.exit(sharded_times(sys.argv[2] if len(sys.argv) > 2 else
+                               os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main())

@@ -1,6 +1,6 @@
 """The port's master_batch (ame_tpu_torch.parallel.batch) on the CPU against
-ame_tpu.parallel.batch.master_batch (mesh None) and against the port's own
-single-track master_graph."""
+ame_tpu.parallel.batch.master_batch (mesh None, and a mesh of 8 devices)
+and against the port's own single-track master_graph."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,10 +49,34 @@ def test_master_batch_runs_the_quality_chain_whatever_the_mode():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_master_batch_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        master_batch(_batch(1, 1024), SR, FLAGSHIP, mesh=object(),
-                     device="cpu")
+def test_master_batch_mesh_matches_reference_and_no_mesh():
+    """tests/test_parallel.py:15-30 on the port: 8 tracks of 4096 over a
+    'data' axis of 8 (the CPU 8 times) against ame_tpu's master_batch on
+    its 8-device mesh (the quality gate, 2e-4), bit-equal to mesh=None, and
+    identical tracks give identical masters; a batch that does not split
+    over the axis raises."""
+    import jax
+    from ame_tpu.parallel.batch import master_batch as ref_master_batch
+    from ame_tpu.parallel.mesh import make_mesh as ref_make_mesh
+    from ame_tpu_torch.parallel.mesh import make_mesh
+    from tests.conftest import make_test_signal
+    xs = np.stack([make_test_signal("noise", 4096, SR, seed=i) * 0.2
+                   for i in range(8)])
+    s = dict(bass_boost=1.5, lufs=-14.0, mode="quality")
+    mesh = make_mesh({"data": 8}, devices=["cpu"] * 8)
+    got = master_batch(xs, SR, s, mesh=mesh)
+    want = np.asarray(ref_master_batch(
+        jnp.asarray(xs), float(SR), s,
+        mesh=ref_make_mesh({"data": 8}, devices=jax.devices()[:8])))
+    assert got.shape == xs.shape and np.abs(got.numpy() - want).max() <= 2e-4
+    torch.testing.assert_close(got, master_batch(xs, SR, s, device="cpu"),
+                               rtol=0, atol=0)
+    same = master_batch(np.stack([xs[0]] * 4), SR, s, mesh=make_mesh(
+        {"data": 2}, devices=["cpu"] * 2))
+    for b in range(1, 4):
+        torch.testing.assert_close(same[b], same[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="does not split"):
+        master_batch(xs[:3], SR, s, mesh=mesh)
 
 
 def test_master_batch_rejects_other_shapes():

@@ -403,3 +403,34 @@ def test_real_process_flow_matches_reference(tmp_path, monkeypatch):
     y, _ = W.read_wav(str(tmp_path / "p.wav"), prefer_int16=True)
     y_ref, _ = W.read_wav(str(tmp_path / "r.wav"), prefer_int16=True)
     assert np.abs(y.astype(np.int32) - y_ref.astype(np.int32)).max() <= 1
+
+
+def test_shard_time_box_runs_the_sharded_chain(tmp_path, monkeypatch):
+    """The "Distribute this track across all chips" box (shard_time) takes
+    a GUI job through process_audio onto the time-sharded chain (the CPU
+    pool: one device), with no degrade warning, to the done dialog."""
+    import functools
+    from ame_tpu_torch.api import process_audio
+    from ame_tpu_torch.creative import art
+    monkeypatch.setattr(art, "_try_register_vertex", lambda: None)
+    monkeypatch.setattr(art, "_providers", {})
+    monkeypatch.setattr(art, "_active", None)
+    monkeypatch.delenv("AME_TPU_ART_PROVIDER", raising=False)
+    src = str(tmp_path / "in.wav")
+    W.write_wav(src, make_test_signal("noise", 1 << 15, SR) * 0.3, SR)
+    view = FakeView()
+    ctl = port_logic.GuiController(view)
+    settings = port_logic.build_settings(
+        {"bass_boost": 2.0, "lufs": -14.0}, input_file=src,
+        output_file=str(tmp_path / "out.wav"), multiband=False,
+        art_prompt="", auto_generate_prompt=False, create_mp3=False,
+        shard_time=True)
+    ctl.start(settings, functools.partial(process_audio,
+                                          device="cpu")).join(300)
+    _pump(ctl, view, lambda v: v.busy is False)
+    statuses = _statuses(view)
+    assert ("Running time-sharded mastering graph over 1 devices..."
+            in statuses), statuses
+    assert not any(s.startswith("Warning") for s in statuses), statuses
+    assert statuses[-1] == "Success: Processing complete! (No art generated)"
+    assert ("info", "Success", "Your audio has been mastered.") in view.calls

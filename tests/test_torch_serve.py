@@ -559,20 +559,71 @@ def test_serve_devices(monkeypatch):
                                         for i in range(3)]
 
 
+def test_shard_time_job_runs_the_sharded_chain(tmp_path, monkeypatch):
+    """settings.shard_time masters on the sp path (the worker's pool: the
+    CPU once, under the process's shard_time lock), with no degrade
+    warning, and equals the same job without shard_time within 2e-3."""
+    from ame_tpu_torch import api
+    from ame_tpu_torch.io.wav import read_wav
+
+    class Recording:
+        def __init__(self):
+            self.lock, self.entered = threading.Lock(), 0
+
+        def __enter__(self):
+            self.lock.acquire()
+            self.entered += 1
+
+        def __exit__(self, *exc):
+            self.lock.release()
+
+    lock = Recording()
+    monkeypatch.setattr(api, "_shard_time_lock", lock)
+    srv, store, base = _start(tmp_path, workers=1)
+    try:
+        x = make_test_signal("noise", 4096 * 8, SR) * 0.2
+        settings = {"bass_boost": 1.5, "lufs": None, "create_mp3": False}
+        a, i = _run_job(base, tmp_path, "sp.wav",
+                        dict(settings, shard_time=True), x=x)
+        st = _wait_done(base, a, i)
+        assert st["status"] == "done", st
+        msgs = store.job_snapshot(a)["messages"]
+        assert not any(m.startswith("Warning:") for m in msgs), msgs
+        assert ("Running time-sharded mastering graph over 1 devices..."
+                in msgs)
+        assert "Running mastering graph on device..." not in msgs
+        assert lock.entered == 1
+        b, j = _run_job(base, tmp_path, "one.wav", settings, x=x)
+        st_one = _wait_done(base, b, j)
+        assert st_one["status"] == "done", st_one
+        outs = []
+        for name, done in ((a, st), (b, st_one)):
+            path = tmp_path / ("got_" + name)
+            path.write_bytes(urllib.request.urlopen(
+                base + done["download_url"]).read())
+            outs.append(read_wav(str(path))[0])
+        np.testing.assert_allclose(outs[0], outs[1], atol=2e-3)
+    finally:
+        srv.shutdown()
+
+
 def test_shard_time_job_degrades_to_one_device(tmp_path):
-    """settings.shard_time masters on the worker's one device, after the
-    reference's degrade warning."""
+    """A shard_time job the sharded chain cannot take (compat loudnorm on
+    a track under 3.1 s) masters on the worker's one device after the
+    reference's exact degrade warning."""
     srv, store, base = _start(tmp_path, workers=1)
     try:
         a, i = _run_job(base, tmp_path, "sp.wav",
-                        {"bass_boost": 1.5, "lufs": None, "shard_time": True,
+                        {"mode": "compat", "lufs": -14.0, "shard_time": True,
                          "create_mp3": False}, n=4096 * 8)
         st = _wait_done(base, a, i)
         assert st["status"] == "done", st
         msgs = store.job_snapshot(a)["messages"]
         warn = [m for m in msgs if m.startswith("Warning: time-sharding")]
-        assert len(warn) == 1 and warn[0].endswith(
-            "; falling back to one device.")
+        assert warn == ["Warning: time-sharding unavailable (compat "
+                        "loudnorm needs >= 3.1 s of audio (the controller's "
+                        "priming window); use the single-chip graph for "
+                        "short tracks); falling back to one device."], msgs
         assert msgs.index(warn[0]) < msgs.index(
             "Running mastering graph on device...")
         blob = urllib.request.urlopen(base + st["download_url"]).read()
