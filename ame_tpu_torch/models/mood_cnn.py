@@ -100,16 +100,31 @@ def predict_mood(model: MoodCNN, image: torch.Tensor) -> str:
     return MOOD_CLASSES[int(logits[0].argmax())]
 
 
+def _keep_mask(shape, rate: float, generator: torch.Generator | None,
+               device) -> torch.Tensor:
+    """Dropout's keep mask at ``shape``: one uniform draw a unit from
+    ``generator``, kept with probability 1 - rate. The sharded step
+    (``parallel/train.py``) draws it at the global batch's shape and takes
+    its rank's rows and columns, so it drops what this model's step drops."""
+    if generator is None:
+        raise ValueError("training dropout draws from an explicit "
+                         "torch.Generator; pass generator=")
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def _apply_dropout(x: torch.Tensor, mask: torch.Tensor,
+                   rate: float) -> torch.Tensor:
+    """Zero the units ``mask`` drops and scale the kept ones by
+    1 / (1 - rate)."""
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _dropout(x: torch.Tensor, rate: float,
              generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each unit with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate)."""
-    if generator is None:
-        raise ValueError("training dropout draws from an explicit "
-                         "torch.Generator; pass generator=")
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return _apply_dropout(x, _keep_mask(x.shape, rate, generator, x.device),
+                          rate)
 
 
 def init_params(seed: int = 0, device="cpu") -> MoodCNN:

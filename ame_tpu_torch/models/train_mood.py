@@ -13,12 +13,22 @@ Usage:
         [--lr LR] [--batch B] [--out weights.msgpack]
         [--checkpoint-dir DIR] [--device cuda|cpu]
 
-Trains on one device (``--device``, the card by default) with
-``torch.optim.Adam``; the data-parallel mesh step of ``ame_tpu`` is not
-ported. With ``--checkpoint-dir`` the model and optimizer are saved every
-epoch and a restart resumes after the newest checkpoint
-(``models/checkpoint.py``). The weights are written as a flax checkpoint
-(``mood_cnn.save_params``), which both packages load.
+    torchrun --nproc_per_node=W -m ame_tpu_torch.models.train_mood <data_root>
+
+Trains with ``torch.optim.Adam`` on ``--device`` (the card by default).
+``main`` calls ``parallel/mesh.init_distributed``: started by torchrun (or
+with its environment set) with W > 1 processes, it trains over a
+{"data": W, "model": 1} mesh (``parallel/train.make_sharded_train_step``,
+one card a process, NCCL; gloo with ``--device cpu``), as ``ame_tpu``'s
+trainer does over its devices. Every rank loads the same examples from the
+same seed and takes its rows of each global batch of ``--batch`` // W * W;
+rank 0 alone logs the epochs and writes the checkpoints and the weights,
+and every rank restores from the checkpoint on resume. With one process it
+trains on one device with ``mood_cnn.make_train_step``. With
+``--checkpoint-dir`` the model and optimizer are saved every epoch and a
+restart resumes after the newest checkpoint (``models/checkpoint.py``).
+The weights are written as a flax checkpoint (``mood_cnn.save_params``),
+which both packages load.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ame_tpu_torch.device import resolve_device
 
@@ -142,8 +153,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from ame_tpu_torch.models import checkpoint, mood_cnn
+    from ame_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
+    started = not dist.is_initialized()
+    world = init_distributed(device=args.device)
     dev = resolve_device(args.device, "training")
+    if dev.type == "cuda" and world > 1:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    lead = world == 1 or dist.get_rank() == 0
     rng = np.random.default_rng(0)
     examples = list(_load_examples(args.data_root, rng, device=dev))
     if not examples:
@@ -153,17 +170,31 @@ def main(argv=None) -> int:
                           device=dev)
     log.info("loaded %d examples", len(examples))
 
-    model = mood_cnn.init_params(0, device=dev)
-    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    bsz = max(min(args.batch, len(examples)), 1)
+    if world == 1:
+        model = mood_cnn.init_params(0, device=dev)
+        opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+        step = mood_cnn.make_train_step(opt)
+    else:
+        from ame_tpu_torch.parallel.train import make_sharded_train_step
+        # each process names its own device for every rank: a rank uses
+        # only its own entry
+        mesh = make_mesh({"data": world, "model": 1}, devices=[dev] * world)
+        init_fn, sharded_step, place_batch = make_sharded_train_step(
+            mesh, learning_rate=args.lr)
+        model, opt = init_fn(0)
+        bsz = max(bsz // world * world, world)
+
+        def step(model, images, labels, gen):
+            return sharded_step(model, opt, *place_batch(images, labels),
+                                gen)[2:]
     start_epoch = 0
     if args.checkpoint_dir:
         model, opt, start_epoch = checkpoint.restore_train_state(
             args.checkpoint_dir, model, opt)
-        if start_epoch:
+        if start_epoch and lead:
             log.info("resumed from checkpoint at epoch %d", start_epoch - 1)
-    step = mood_cnn.make_train_step(opt)
     gen = torch.Generator(device=dev).manual_seed(0)
-    bsz = max(min(args.batch, len(examples)), 1)
     model.train()
     for epoch in range(start_epoch, args.epochs):
         perm = rng.permutation(len(examples))
@@ -182,13 +213,18 @@ def main(argv=None) -> int:
         secs = time.perf_counter() - t0
         loss = float(torch.stack(losses).mean())
         acc = float(torch.stack(accs).mean())
+        if not lead:
+            continue
         log.info("epoch %d: loss %.4f acc %.3f (%d steps, %.3f ms a step)",
                  epoch, loss, acc, len(losses), secs / len(losses) * 1e3)
         if args.checkpoint_dir:
             checkpoint.save_train_state(args.checkpoint_dir, epoch, model,
                                         opt)
-    path = mood_cnn.save_params(model, args.out)
-    log.info("saved weights to %s", path)
+    if lead:
+        path = mood_cnn.save_params(model, args.out)
+        log.info("saved weights to %s", path)
+    if world > 1 and started:
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,5 +1,5 @@
-"""Device meshes for the port's multi-device paths (port of
-``ame_tpu/parallel/mesh.py``: ``make_mesh``).
+"""Device meshes and the multi-process runtime (port of
+``ame_tpu/parallel/mesh.py``: ``init_distributed``, ``make_mesh``).
 
 A ``Mesh`` is an ndarray of ``torch.device`` with named axes. The port's
 multi-device paths run in the caller's one process: shard *i* of an axis
@@ -10,15 +10,79 @@ A mesh may name one device several times: D shards then run on one card (or
 on the CPU, as the tests run D = 8), which is the counterpart of the JAX
 tests' virtual host devices.
 
-``init_distributed`` (the multi-process runtime) is not ported yet.
+The multi-process path, the sharded training step (``parallel/train.py``),
+runs one process a rank over ``torch.distributed``: ``init_distributed``
+starts the process group, and a mesh then describes the ranks, rank r on
+its flat row-major entry r.
 """
 
 from __future__ import annotations
 
+import datetime
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ame_tpu_torch.device import resolve_device
+
+
+def init_distributed(coordinator_address: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None, device="cuda",
+                     timeout: float = 600.0) -> int:
+    """Start ``torch.distributed``'s process group for a multi-process run;
+    returns the world size.
+
+    Call once per process before the sharded training step. The arguments
+    map to ``init_process_group``: ``coordinator_address`` is the
+    ``init_method`` (``tcp://host:port``, ``file:///path``; a bare
+    ``host:port`` means TCP), ``num_processes`` the world size,
+    ``process_id`` the rank. They default to torchrun's environment:
+    ``MASTER_ADDR`` / ``MASTER_PORT`` (``env://``), ``WORLD_SIZE``,
+    ``RANK``; ``AME_TPU_COORDINATOR_ADDRESS`` names an ``init_method`` for
+    launchers that export no TCP address, and ``AME_TPU_DISTRIBUTED=1``
+    forces ``env://``. With none of these signals it is a no-op returning
+    1: a single-card box must not wait for a coordinator. Called again once
+    the group exists, it returns its size.
+
+    ``device`` "cuda" (default; raises without a card) selects the card
+    ``LOCAL_RANK`` (else the rank modulo the card count) and the ``nccl``
+    backend; "cpu" the ``gloo`` backend. ``timeout`` (seconds) bounds every
+    collective, so a lost rank fails the others instead of hanging them."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    env = os.environ
+    coordinator_address = (coordinator_address
+                           or env.get("AME_TPU_COORDINATOR_ADDRESS"))
+    if num_processes is None and env.get("WORLD_SIZE"):
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and env.get("RANK"):
+        process_id = int(env["RANK"])
+    forced = (env.get("AME_TPU_DISTRIBUTED") == "1"
+              or ("MASTER_ADDR" in env and "MASTER_PORT" in env))
+    if (coordinator_address is None and num_processes is None
+            and process_id is None and not forced):
+        return 1
+    if coordinator_address is None:
+        init_method = "env://"
+    elif "://" in coordinator_address:
+        init_method = coordinator_address
+    else:
+        init_method = f"tcp://{coordinator_address}"
+    dev = resolve_device(device, "distributed training")
+    if dev.type == "cuda":
+        local = env.get("LOCAL_RANK")
+        torch.cuda.set_device(
+            int(local) if local is not None
+            else (process_id or 0) % torch.cuda.device_count())
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", init_method=init_method,
+        world_size=-1 if num_processes is None else num_processes,
+        rank=-1 if process_id is None else process_id,
+        timeout=datetime.timedelta(seconds=timeout))
+    return dist.get_world_size()
 
 
 class Mesh:

@@ -228,12 +228,31 @@ failure raises and the script exits non-zero without the final line:
      3e-5, rtol 1e-4); (e) master_file(shard_time=True) on cuda:0: the
      time-sharded status and no degrade warning, K5 2, within 2e-3 of the
      unsharded master;
- 18. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+ 18. the sharded training step and the channel-stacked batch
+     (parallel/mesh.init_distributed, parallel/train.py,
+     parallel/stacked.py): (a) init_distributed with a file:// store in
+     the run's temp dir and the nccl backend, world size 1 (the card
+     machine has one card, and NCCL refuses two ranks on one device: the
+     multi-rank layouts are held by the CPU tests over gloo), then
+     make_sharded_train_step over {"data": 1, "model": 1} at batch 32 on
+     the full mood CNN, 10 steps with dropout on from one generator: the
+     parameters within 1e-5 of mood_cnn.make_train_step's on the card
+     from the same generator seed, the loss falls, no kernel of the port
+     launched, a step's time beside the one-device step's, the process
+     group destroyed; (b) master_batch_stacked on phase 16's [4, 2^23, 2]
+     with the flagship settings and multiband: K5 exactly 7 launches (each
+     cascade once on the [N, 8] stack, the smoother at C = 12) and nothing
+     else, each track within atol 5e-5, rtol 1e-4 of master_graph on it,
+     its device time beside master_batch's on the same input (multiband
+     and flagship), and K5 on each of the stack's cascades at [2^23, 8]
+     (the smoother at [2^23, 12]) against its plain version from a
+     non-zero zi (1e-4), timed with its bound;
+ 19. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
      a {"musicologist": ...} line, a {"streaming": ...} line, a {"fit":
      ...} line, a {"train": ...} line, a {"serve": ...} line, a
-     {"surfaces": ...} line, a {"sharded": ...} line, then the last line
-     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-     ...}}.
+     {"surfaces": ...} line, a {"sharded": ...} line, a {"train_sharded":
+     ...} line, a {"stacked": ...} line, then the last line {"ok": true,
+     "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
 script stops after phase 1 with a non-zero exit and prints no result.
@@ -3954,6 +3973,195 @@ def phase_sharded(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the sharded training step (parallel/mesh.init_distributed,
+# parallel/train.py) and the channel-stacked batch (parallel/stacked.py)
+# ---------------------------------------------------------------------------
+SHARDED_STEPS = 10
+SHARDED_TOL = 1e-5             # the sharded step vs the one-device step
+STACKED_TOL = (5e-5, 1e-4)     # tests/test_parallel.py:136-137 (atol, rtol)
+# K5 launches of one master_batch_stacked with QUALITY_MB, whatever B:
+# analog shelves, EQ, the 3 band cascades, the attack smoother (at C = 3B)
+# and the K-weighting, each once over the [N, 2B] stack (the prediction
+# in PERF.md's findings)
+STACKED_K5 = 7
+
+
+def _train_sharded(tmp: str) -> dict:
+    """(a) make_sharded_train_step over {"data": 1, "model": 1} on cuda:0
+    after init_distributed with a file:// store and the nccl backend (the
+    gradient and loss all-reduces run over a one-rank NCCL group), at batch
+    32 on the full mood CNN, 10 steps with dropout on from one generator,
+    beside mood_cnn.make_train_step from the same seed and generator seed:
+    the parameters within 1e-5, the loss falls, no kernel of the port
+    launched; a step's device time beside the one-device step's. NCCL
+    refuses two ranks on one card, so the multi-rank layouts are held by
+    the CPU tests over gloo (tests/test_torch_dist_train.py)."""
+    import torch.distributed as dist
+    from ame_tpu_torch.models import mood_cnn
+    from ame_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from ame_tpu_torch.parallel.train import make_sharded_train_step
+    world = init_distributed(f"file://{os.path.join(tmp, 'dist_store')}",
+                             1, 0, device="cuda", timeout=300.0)
+    try:
+        backend = dist.get_backend()
+        if world != 1 or backend != "nccl":
+            raise AssertionError(f"init_distributed: world {world}, "
+                                 f"backend {backend}")
+        init_fn, step_fn, place_batch = make_sharded_train_step(
+            make_mesh({"data": 1, "model": 1}, devices=["cuda:0"]),
+            TRAIN_LR)
+        params, opt = init_fn(0)
+        model = mood_cnn.init_params(0, device="cuda")
+        step = mood_cnn.make_train_step(torch.optim.Adam(model.parameters(),
+                                                         lr=TRAIN_LR))
+        # a class a brightness band: a batch the CNN can learn in a few
+        # steps, so the loss falls through the dropout's noise
+        rng = np.random.default_rng(0)
+        labels = rng.integers(0, 4, TRAIN_BATCH)
+        images = (0.25 * rng.random((TRAIN_BATCH, 128, 128, 3))
+                  + 0.25 * labels[:, None, None, None]).astype(np.float32)
+        x, y = place_batch(images, labels)
+        if x.device != torch.device("cuda:0"):
+            raise AssertionError(f"place_batch put the batch on {x.device}")
+        gens = [torch.Generator(device="cuda").manual_seed(0)
+                for _ in range(2)]
+        # cuDNN's default weight-gradient algorithms sum with atomics, so
+        # two runs of one step differ in float32's last bits, which max
+        # pooling's routing and Adam's sqrt(v) amplify (noise, reported
+        # below): the comparison runs its deterministic algorithms
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True):
+            _zero_counts()
+            losses = [float(step_fn(params, opt, x, y, gens[0])[2])
+                      for _ in range(SHARDED_STEPS)]
+            counts = _read_counts()
+            for _ in range(SHARDED_STEPS):
+                step(model, x, y, gens[1])
+        err = max((a - b).abs().max().item() for a, b in
+                  zip(params.parameters(), model.parameters()))
+        noise = _one_device_noise(x, y)
+        if not (all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0] and err <= SHARDED_TOL):
+            raise AssertionError(f"sharded step: losses {losses}, vs the "
+                                 f"one-device step {err:.3e}")
+        if any(counts.values()):
+            raise AssertionError(f"sharded step launched kernels {counts}")
+        step_ms = _cuda_ms(lambda: step_fn(params, opt, x, y, gens[0]))
+        one_ms = _cuda_ms(lambda: step(model, x, y, gens[1]))
+    finally:
+        dist.destroy_process_group()
+    print(f"train_sharded: world 1 over {backend}, batch {TRAIN_BATCH}, "
+          f"{SHARDED_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"vs the one-device step {err:.3e} (the one-device step against "
+          f"itself with cuDNN's default algorithms {noise:.3e}); a step "
+          f"{step_ms:.3f} ms (one-device step {one_ms:.3f} ms)")
+    return {"world": world, "backend": backend, "batch": TRAIN_BATCH,
+            "steps": SHARDED_STEPS, "losses": losses,
+            "max_abs_err_vs_one_device": err,
+            "one_device_run_to_run": noise, "step_ms": step_ms,
+            "one_device_step_ms": one_ms, "counts": counts}
+
+
+def _one_device_noise(x: torch.Tensor, y: torch.Tensor) -> float:
+    """The largest parameter difference between two runs of
+    SHARDED_STEPS one-device steps from the same seeds, with cuDNN's
+    default algorithms."""
+    from ame_tpu_torch.models import mood_cnn
+    runs = []
+    for _ in range(2):
+        model = mood_cnn.init_params(0, device="cuda")
+        step = mood_cnn.make_train_step(torch.optim.Adam(model.parameters(),
+                                                         lr=TRAIN_LR))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(SHARDED_STEPS):
+            step(model, x, y, gen)
+        runs.append(list(model.parameters()))
+    return max((a - b).abs().max().item() for a, b in zip(*runs))
+
+
+def _stacked_cascades(B: int) -> dict:
+    """The K5 inputs of master_batch_stacked with QUALITY_MB on B tracks:
+    {name: (sos, C)}; the quality path's three cascades and the 3-band
+    split's bands on the [N, 2B] stack, the attack smoother on [N, 3B]."""
+    from ame_tpu_torch import config as C
+    from ame_tpu_torch.graph import multiband as mb
+    from ame_tpu_torch.ops.compressor import attack_sos
+    out = {name: (sos, 2 * B) for name, sos in _quality_cascades().items()}
+    out.update({f"band{b}": (sos, 2 * B)
+                for b, sos in enumerate(mb._band_cascades_3(SR))})
+    out["attack_smoother"] = (attack_sos(SR, C.MB_ATTACK_MS), 3 * B)
+    return out
+
+
+def _stacked(src: str) -> dict:
+    """(b) master_batch_stacked on [4, 2^23, 2] (phase 16's input: the
+    quality track and three noise tracks) with QUALITY_MB: K5 exactly
+    STACKED_K5 times and nothing else, each track within atol 5e-5, rtol
+    1e-4 of master_graph on it; device times beside master_batch on the
+    same input (QUALITY_MB and FLAGSHIP); K5 at the stack's shapes against
+    its plain version with its bound."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.io.wav import read_wav
+    from ame_tpu_torch.parallel.batch import master_batch
+    from ame_tpu_torch.parallel.stacked import master_batch_stacked
+    pcm, _ = read_wav(src, prefer_int16=True)
+    xs = torch.stack(
+        [torch.from_numpy(pcm).cuda().to(torch.float32) * (1.0 / 32768.0)]
+        + [_noise_input(N_MAIN, 2, s)[0] for s in BATCH_SEEDS])
+    _zero_counts()
+    ys = master_batch_stacked(xs, SR, QUALITY_MB)
+    counts = _read_counts()
+    _hold_counts("master_batch_stacked", counts,
+                 {"cascade_scan": STACKED_K5, "wedge_env": 0,
+                  "gain_jacobi": 0, "gain_p1": 0, "gain_p2": 0})
+    if tuple(ys.shape) != tuple(xs.shape):
+        raise AssertionError(f"master_batch_stacked shape {ys.shape}")
+    settings = MasterSettings(**QUALITY_MB)
+    errs, over = [], []
+    for b in range(BATCH):
+        y, _ = master_graph(xs[b], SR, settings)
+        d = (ys[b] - y).abs()
+        errs.append(d.max().item())
+        over.append((d - STACKED_TOL[1] * y.abs()).max().item())
+    if not (torch.isfinite(ys).all().item()
+            and max(over) <= STACKED_TOL[0]):
+        raise AssertionError(f"master_batch_stacked vs master_graph: max "
+                             f"{errs}, over rtol {over}")
+    del ys
+    times = {f"{fn.__name__}_{label}": _cuda_ms(
+        lambda: fn(xs, SR, settings_dict))
+        for label, settings_dict in (("quality_mb", QUALITY_MB),
+                                     ("flagship", FLAGSHIP))
+        for fn in (master_batch_stacked, master_batch)}
+    del xs
+    rows, inputs = [], {}
+    for name, (sos, cols) in _stacked_cascades(BATCH).items():
+        if cols not in inputs:
+            inputs[cols] = _noise_input(N_MAIN, cols, 7)
+        rows.append(_cascade_row(f"stacked_{name}", sos, *inputs[cols]))
+    print(f"stacked [{BATCH}, {N_MAIN}, 2] quality_mb: K5 "
+          f"{counts['cascade_scan']}; vs master_graph max {max(errs):.3e}; "
+          "device ms " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return {"counts": counts, "max_abs_err": max(errs),
+            "per_track_max_abs_err": errs, "device_ms": times,
+            "ms_a_track": {k: v / BATCH for k, v in times.items()},
+            "k5": rows}
+
+
+def phase_train_sharded_stacked(tmp: str) -> dict:
+    """Phase 18 (see the module docstring)."""
+    out = {}
+    for key, fn in (("train_sharded", lambda: _train_sharded(tmp)),
+                    ("stacked", lambda: _stacked(os.path.join(tmp,
+                                                              "in.wav")))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def sharded_times(root: str) -> int:
     """``--sharded-times [ROOT]``: each sharded master of phase 17 (the
     paths of SP_PATHS at the meshes of SP_MESHES, on phase 17's inputs)
@@ -4127,6 +4335,8 @@ def main() -> int:
         t0 = time.perf_counter()
         sharded = phase_sharded(tmp)
         sharded["phase_s"] = time.perf_counter() - t0
+        last = phase_train_sharded_stacked(tmp)
+    train_sharded, stacked = last["train_sharded"], last["stacked"]
     sq, sc = stream["quality"], stream["compat"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
              "compat_fallback": fallback["counts"],
@@ -4147,7 +4357,9 @@ def main() -> int:
              **{f"{p}_d{D}": r[f"D{D}"]["counts"]
                 for p, r in sharded["paths"].items() for D in SP_MESHES},
              "band_parallel": sharded["bands"]["counts"],
-             "shard_time_file": sharded["shard_time_file"]["counts"]}
+             "shard_time_file": sharded["shard_time_file"]["counts"],
+             "train_sharded": train_sharded["counts"],
+             "master_batch_stacked": stacked["counts"]}
 
     def entry(name, source, replaces, path, err, ms, plain_ms, bound,
               **extra):
@@ -4167,7 +4379,8 @@ def main() -> int:
               max(max(max(r["max_abs_err_y"], r["max_abs_err_zf"])
                       for r in rows),
                   max(r["max_abs_err"] for r in chunk_rows + mb_rows
-                      + stream["k5"]["rows"] + sharded["zir"]),
+                      + stream["k5"]["rows"] + sharded["zir"]
+                      + stacked["k5"]),
                   stream["k5"]["chain"]["max_abs_err"]),
               sum(r["ms"] for r in quality),
               sum(r["plain_ms"] for r in quality),
@@ -4178,6 +4391,7 @@ def main() -> int:
               per_cascade=rows, chunk_columns=chunk_rows,
               quality_multiband=mb_rows, streaming=stream["k5"],
               sharded_zero_input=sharded["zir"],
+              stacked=stacked["k5"],
               multiband_stage_totals={
                   p: {key: sum(r[key] * r["uses"].get(p, 0)
                                for r in mb_rows)
@@ -4275,6 +4489,9 @@ def main() -> int:
     print(json.dumps({"serve": serve}))
     print(json.dumps({"surfaces": surfaces}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"train_sharded": train_sharded}))
+    print(json.dumps({"stacked": {k: v for k, v in stacked.items()
+                                  if k != "k5"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
