@@ -10,16 +10,19 @@ and its output each filtered by 1/A(z)) it returns, as float64,
 
 summed over n and the C columns, with v, w zero before sample 0:
 dL/d(b0, b1, b2, a1, a2). Products are formed in float32 and added in
-float64, by two launches and no atomics (per-block partials, then one
-block adds them in a fixed order), so the same inputs give the same sums
-on every run.
+float64, by two launches and no atomics (a partial row a block over a
+partition fixed by N, then one small launch adds them in block order), so
+the same inputs give the same sums on every call.
 
 ``sos_grad_cuda`` launches the kernel for CUDA tensors and raises for any
 other; ``sos_grad_plain`` is its plain PyTorch version; ``sos_grad`` picks
-by device. ``sos_grad_cuda.launches`` counts the calls that launched it.
-g, v and w may be column slices of wider tensors (row stride >= C, column
-stride 1), as the backward passes the two halves of one [N, 2C] all-pole
-output.
+by device. ``sos_grad_cuda.launches`` counts the calls that launched it,
+``sos_grad_cuda.vector_launches`` those of them that took the vector
+route. g, v and w may be column slices of wider tensors (row stride >= C,
+column stride 1). The vector route (``vector_route``) takes the layout the
+backward passes, v and w the two halves of one [N, 2C] all-pole output at
+C <= 2 with aligned rows, in one wide load a row; any other layout takes
+the general route, which gives the same sums bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import functools
 import torch
 
 from ame_tpu_torch.ops import _build
+
+MAX_C = 64                       # csrc/sos_grad.cu's MAX_C
 
 
 def _lagged(t: torch.Tensor, j: int) -> torch.Tensor:
@@ -53,7 +58,7 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build("sos_grad")["path"]))
     lib.sos_grad_f64.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]
-        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3)
+        + [ctypes.c_longlong] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
     lib.sos_grad_f64.restype = ctypes.c_int
     lib.sos_grad_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int]
     lib.sos_grad_blocks.restype = ctypes.c_longlong
@@ -72,6 +77,20 @@ def _row_stride(t: torch.Tensor, name: str, shape) -> int:
     return t.stride(0)
 
 
+def vector_route(C: int, ld: tuple, ptr: tuple) -> bool:
+    """Whether the kernel reads (g, v, w) by its vector route: C <= 2, w
+    the C columns after v in the same rows (w = v + C, one row stride),
+    v's rows aligned to 8C bytes and g's to 4C bytes. ``ld`` holds the row
+    strides (elements) and ``ptr`` the byte addresses of g, v and w. Raises
+    for a C the kernel does not take (1 <= C <= MAX_C)."""
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"sos_grad_cuda: C must be in 1..{MAX_C}, got {C}")
+    (ldg, ldv, ldw), (pg, pv, pw) = ld, ptr
+    return (C <= 2 and pw == pv + 4 * C and ldv == ldw
+            and pv % (8 * C) == 0 and (4 * ldv) % (8 * C) == 0
+            and pg % (4 * C) == 0 and (4 * ldg) % (4 * C) == 0)
+
+
 def sos_grad_cuda(g: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """The five sums on the card: float64 [5] on g's device."""
@@ -83,6 +102,7 @@ def sos_grad_cuda(g: torch.Tensor, v: torch.Tensor,
         raise ValueError("sos_grad_cuda: empty input")
     ld = [_row_stride(t, name, (N, C))
           for t, name in ((g, "g"), (v, "v"), (w, "w"))]
+    vector = vector_route(C, ld, (g.data_ptr(), v.data_ptr(), w.data_ptr()))
     lib = _lib()
     nblocks = lib.sos_grad_blocks(N, C)
     buf = torch.empty(nblocks * 5 + 5, dtype=torch.float64, device=g.device)
@@ -90,16 +110,18 @@ def sos_grad_cuda(g: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.sos_grad_f64(g.data_ptr(), v.data_ptr(), w.data_ptr(), N,
-                               C, *ld, buf.data_ptr(), out.data_ptr(),
-                               stream)
+                               C, *ld, int(vector), buf.data_ptr(),
+                               out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"sos_grad launch failed: CUDA error {err} "
                            f"({lib.sos_grad_error(err).decode()})")
     sos_grad_cuda.launches += 1
+    sos_grad_cuda.vector_launches += vector
     return out
 
 
 sos_grad_cuda.launches = 0
+sos_grad_cuda.vector_launches = 0
 
 
 def sos_grad(g: torch.Tensor, v: torch.Tensor,

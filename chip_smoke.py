@@ -129,9 +129,15 @@ failure raises and the script exits non-zero without the final line:
  13. fitting (models/automaster.py): (a) K5's REVERSE direction on the ten
      main-path cascades at [2^23 + 1234, 2] from zero state against flip ∘
      plain ∘ flip (y and zf within 1e-4), timed beside the forward, with
-     its bound; (b) sos_grad against sos_grad_plain on [2^23 + 1234, 2]
-     (v and w the halves of one [N, 4] tensor), relative error within
-     1e-9 and the same bits twice, timed with its bound (3·N·C·4 bytes);
+     its bound; (b) sos_grad against sos_grad_plain at N = 1, 2, 3, 31,
+     4097, 2^20 + 7, 2^23 + 1234 and C = 1, 2, 3, 16, each with v and w
+     the halves of one [N, 2C] tensor, separate tensors and the halves of
+     a view one float off an allocation (not aligned): relative error
+     within 1e-9, the same bits twice and in all three layouts, the
+     vector route exactly for the halves at C <= 2; at [2^23 + 1234, 2]
+     (halves) timed with its bound (3·N·C·4 bytes) beside the plain
+     version and the library yardstick (torch.einsum over an as_strided
+     lag view, held to plain within 1e-4);
      (c) dL/dtheta of _perceptual_loss on the phase-4 track with every
      term on (multiband parameters, two FFT resolutions, band dynamics,
      stereo field, true peak), through the kernels against every cascade
@@ -139,7 +145,8 @@ failure raises and the script exits non-zero without the final line:
      leaf's largest entry; (d) fit_settings with those terms for 10
      steps against a target made with +4 dB bass, -2 dB presence and
      width 1.3: the loss falls, the bass gain rises, and K5 makes exactly
-     25 forward and 19 reverse launches and sos_grad 6 a step (plus the
+     25 forward and 19 reverse launches and sos_grad 6 a step, all on
+     its vector route (plus the
      target's and the final loss's forward launches), nothing else; a
      step's time (CUDA events, host clock), the host time to prepare a
      tensor sos's tables, and its busy time and idle share under
@@ -260,12 +267,17 @@ script stops after phase 1 with a non-zero exit and prints no result.
 ``python3 chip_smoke.py --kernel-times [ROOT]`` runs phase 3, K1's check
 and times, K2's sweep times, K3's check, time and floor and K4's checks
 and times (with the copy yardstick) at [3, 2^23], K4 at [3, 2^23 + 1234],
-K2's reset route (f) and the device chains (quality, compat, compat
-fallback, compat chunked and its fallback, quality multiband 3 and 16
-bands) and analyze_waveform on 30 s only, with the ame_tpu_torch package
+K2's reset route (f), sos_grad at [2^23 + 1234, 2] (13 (b)'s check and
+times), the device chains (quality, compat, compat fallback, compat
+chunked and its fallback, quality multiband 3 and 16 bands) and
+analyze_waveform on 30 s only, with the ame_tpu_torch package
 under ROOT (default: this checkout; e.g. an unpacked parent commit, which
 may lack chunked compat, multiband or the Musicologist: those parts are
 then left out), so that two trees can be timed in turns on one card.
+``python3 chip_smoke.py --sos-grad-variants [PARENT]`` builds PARENT's
+csrc/sos_grad.cu and this checkout's under each of SG_VARIANTS' defines
+(the general route, steps in flight, grid size) and times them in turns
+at [2^23 + 1234, 2], with their registers and SASS opcode counts.
 ``python3 chip_smoke.py --sharded-times [ROOT]`` times phase 17's sharded
 masters (each path at D = 1 and 4, twice, with its launches) of the
 ame_tpu_torch package under ROOT, in the same way.
@@ -278,6 +290,7 @@ to file). Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s f32.
 
 import concurrent.futures
 import contextlib
+import ctypes
 import json
 import logging
 import math
@@ -396,14 +409,17 @@ def _counters():
 def _reset_counters() -> dict:
     """The counts kept under other names than ``launches``, where the
     package keeps them: K2's reset route and K3 with flags (within
-    gain_jacobi's and gain_p1's counts), and K5's reverse launches (apart
-    from its forward ones)."""
+    gain_jacobi's and gain_p1's counts), K5's reverse launches (apart
+    from its forward ones) and sos_grad's vector route (within its
+    count)."""
     from ame_tpu_torch.ops import pydub_gain as pg
     from ame_tpu_torch.ops.cascade_scan import sosfilt_cuda
+    sos_grad = _counters().get("sos_grad")
     return {k: (fn, attr) for k, fn, attr in (
         ("gain_jacobi_resets", pg.gain_jacobi_cuda, "reset_launches"),
         ("gain_p1_resets", pg.gain_p1_cuda, "reset_launches"),
-        ("cascade_scan_reverse", sosfilt_cuda, "reverse_launches"))
+        ("cascade_scan_reverse", sosfilt_cuda, "reverse_launches"),
+        ("sos_grad_vector", sos_grad, "vector_launches"))
         if hasattr(fn, attr)}
 
 
@@ -455,17 +471,24 @@ SASS_OPS = ("LDG", "LDS", "STS", "STG", "FFMA", "FMUL", "FADD", "FMNMX",
             "FSEL", "FSETP")
 
 
+def _sass(so):
+    """cuobjdump -sass of the library `so`; None without cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    return subprocess.run([exe, "-sass", str(so)], capture_output=True,
+                          text=True).stdout
+
+
 def _sass_hot_loops(so, kernel: str):
     """The innermost loops of `kernel` that hold FMNMX (a loop is a
     backward branch in cuobjdump's SASS of the library): each one's address
     range, instruction count and the count of each opcode in SASS_OPS.
     None when cuobjdump or the kernel is not found."""
-    exe = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(exe):
+    text = _sass(so)
+    if text is None:
         return None
-    text = subprocess.run([exe, "-sass", str(so)], capture_output=True,
-                          text=True).stdout
     body = None
     for chunk in text.split("Function : ")[1:]:
         mangled = chunk.split(None, 1)[0]
@@ -505,17 +528,20 @@ def _sass_hot_loops(so, kernel: str):
                        for t2, a2, _ in loops)]
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's mangled name shortened to name<template int>..."""
+    m = re.match(r"_Z(\d+)", mangled)
+    name = mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+    return name + "".join(f"<{a}>" for a in re.findall(r"L[ib](\d+)E",
+                                                        mangled))
+
+
 def _ptxas_report(text: str) -> list:
     """(kernel, registers, spill store + load bytes) from nvcc -Xptxas -v:
     the kernel's mangled name shortened to name<template int>."""
     out = []
     for chunk in text.split("Compiling entry function '")[1:]:
-        mangled = chunk.split("'", 1)[0]
-        m = re.match(r"_Z(\d+)", mangled)
-        name = (mangled[m.end():m.end() + int(m.group(1))] if m
-                else mangled)
-        name += "".join(f"<{a}>" for a in re.findall(r"L[ib](\d+)E",
-                                                     mangled))
+        name = _kernel_name(chunk.split("'", 1)[0])
         regs = re.search(r"Used (\d+) registers", chunk)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", chunk)
@@ -2567,35 +2593,132 @@ def _fit_reverse() -> list:
     return rows
 
 
-def _fit_sos_grad() -> dict:
-    """(b) sos_grad against sos_grad_plain on [2^23 + 1234, 2] inputs, v
-    and w the halves of one [N, 4] tensor as the backward passes them:
-    relative error within 1e-9, the same sums bit for bit on a second
-    call; times and bound."""
+SOS_GRAD_NS = (1, 2, 3, 31, 4097, (1 << 20) + 7, N_KERNEL)
+SOS_GRAD_CS = (1, 2, 3, 16)
+SOS_GRAD_LIB_TOL = 1e-4        # relative: the library call sums in f32
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest relative error of got against want; a sum that is 0 in
+    want must be 0 in got."""
+    return ((got - want).abs() / want.abs().clamp_min(1e-300)).max().item()
+
+
+def _sos_grad_layouts(n: int, c: int, seed: int) -> dict:
+    """{layout: (g, v, w)} on the card, the same values in each: v and w
+    the halves of one [n, 2c] tensor (as the backward passes them),
+    separate contiguous tensors, and the halves of an [n, 2c] view one
+    float past an allocation's start (rows not aligned)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(n, c, device="cuda", generator=gen)
+    vw = 30.0 * torch.randn(n, 2 * c, device="cuda", generator=gen)
+    flat = torch.empty(n * 2 * c + 1, device="cuda")
+    flat[1:] = vw.reshape(-1)
+    off = flat[1:].view(n, 2 * c)
+    return {"halves": (g, vw[:, :c], vw[:, c:]),
+            "separate": (g, vw[:, :c].clone(), vw[:, c:].clone()),
+            "unaligned": (g, off[:, :c], off[:, c:])}
+
+
+def _sos_grad_sweep() -> dict:
+    """(b) sos_grad against sos_grad_plain at every N in SOS_GRAD_NS and C
+    in SOS_GRAD_CS, in each of _sos_grad_layouts' layouts: relative error
+    within 1e-9, the same bits on a second call, the vector route taken
+    exactly for the halves at C <= 2, and the same bits in every layout
+    (both routes add the same products in the same order)."""
     from ame_tpu_torch.ops.sos_grad import sos_grad_cuda, sos_grad_plain
-    rng = np.random.default_rng(10)
-    g = torch.from_numpy(rng.standard_normal((N_KERNEL, 2)).astype(
-        np.float32)).cuda()
-    vw = torch.from_numpy((30.0 * rng.standard_normal((N_KERNEL, 4))).astype(
-        np.float32)).cuda()
-    v, w = vw[:, :2], vw[:, 2:]
+    worst, cases = 0.0, 0
+    for n in SOS_GRAD_NS:
+        for c in SOS_GRAD_CS:
+            sums = {}
+            for layout, (g, v, w) in _sos_grad_layouts(n, c, n + c).items():
+                vec0 = sos_grad_cuda.vector_launches
+                got = sos_grad_cuda(g, v, w)
+                again = sos_grad_cuda(g, v, w)
+                vector = (sos_grad_cuda.vector_launches - vec0) // 2
+                rel = _rel_err(got, sos_grad_plain(g, v, w))
+                label = f"sos_grad [{n}, {c}] {layout}"
+                if not rel <= SOS_GRAD_TOL or not torch.equal(got, again):
+                    raise AssertionError(f"{label}: relative {rel:.3e} > "
+                                         f"{SOS_GRAD_TOL}, or not the same "
+                                         f"twice")
+                if vector != (layout == "halves" and c <= 2):
+                    raise AssertionError(f"{label}: vector route {vector}")
+                sums[layout] = got
+                worst, cases = max(worst, rel), cases + 1
+            if not all(torch.equal(x, sums["halves"]) for x in sums.values()):
+                raise AssertionError(f"sos_grad [{n}, {c}]: the layouts "
+                                     f"disagree: {sums}")
+    print(f"sos_grad sweep: {cases} cases (N {SOS_GRAD_NS} x C "
+          f"{SOS_GRAD_CS} x 3 layouts), relative error <= {worst:.3e}, "
+          f"the same bits twice and in every layout")
+    return {"cases": cases, "max_rel_err": worst, "n": list(SOS_GRAD_NS),
+            "c": list(SOS_GRAD_CS)}
+
+
+def _sos_grad_library(g, v, w):
+    """The yardstick: one torch.einsum over lags x (v, w) x columns, an
+    as_strided view of a zero-padded copy of v|w (made here, outside the
+    timed call). Returns (the call, its result in sos_grad's order)."""
+    n, c = g.shape
+    pad = torch.zeros(n + 2, 2 * c, device=g.device)
+    pad[2:, :c], pad[2:, c:] = v, w
+    V = pad.as_strided((n, 3, 2, c), (2 * c, 2 * c, c, 1))   # lag 2 - i
+
+    def call():
+        return torch.einsum("tc,tikc->ik", g, V)
+    r = call().double()
+    return call, torch.stack([r[2, 0], r[1, 0], r[0, 0], -r[1, 1],
+                              -r[0, 1]])
+
+
+def _sos_grad_time() -> dict:
+    """sos_grad at [2^23 + 1234, 2], v and w the halves of one [N, 4]
+    tensor as the backward passes them: held to sos_grad_plain (relative
+    1e-9, the same bits twice), timed beside it, its bound and the library
+    yardstick (held to plain within 1e-4 relative); the device time of a
+    launch by kernel (torch.profiler: the mean over the records it kept,
+    which it may drop after long streams of small launches, as in
+    _launch_ms). Runs on the package on sys.path, so that
+    --kernel-times can time a parent tree's kernel."""
+    from ame_tpu_torch.ops.sos_grad import sos_grad_cuda, sos_grad_plain
+    g, v, w = _sos_grad_layouts(N_KERNEL, 2, 10)["halves"]
     got = sos_grad_cuda(g, v, w)
     again = sos_grad_cuda(g, v, w)
     want = sos_grad_plain(g, v, w)
-    rel = ((got - want).abs() / want.abs()).max().item()
+    rel = _rel_err(got, want)
     if not rel <= SOS_GRAD_TOL or not torch.equal(got, again):
         raise AssertionError(f"sos_grad vs plain: relative {rel:.3e} > "
                              f"{SOS_GRAD_TOL}, or not the same twice")
+    lib_call, lib = _sos_grad_library(g, v, w)
+    lib_rel = _rel_err(lib, want)
+    if not lib_rel <= SOS_GRAD_LIB_TOL:
+        raise AssertionError(f"sos_grad library yardstick vs plain: "
+                             f"relative {lib_rel:.3e} > {SOS_GRAD_LIB_TOL}")
     ms = _cuda_ms(lambda: sos_grad_cuda(g, v, w), KERNEL_CALLS)
+    one_ms = _cuda_ms(lambda: sos_grad_cuda(g, v, w))
     plain_ms = _cuda_ms(lambda: sos_grad_plain(g, v, w))
+    library_ms = _cuda_ms(lib_call)
+    device_ms = {k: ms / n for k, (ms, n) in _profile(
+        lambda: sos_grad_cuda(g, v, w), 20).items()}
     bound = _sos_grad_bound(N_KERNEL, 2)
     print(f"sos_grad [{N_KERNEL}, 2]: relative err {rel:.3e}; kernel "
           f"{ms:.4f} ms ({bound[0] / ms:.1%} of its bound {bound[0]:.4f} "
-          f"ms), plain {plain_ms:.4f} ms")
+          f"ms; one call {one_ms:.4f}), plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms (relative err {lib_rel:.3e}); device ms a "
+          f"launch by kernel {device_ms}")
     return {"max_rel_err": rel, "max_abs_err": (got - want).abs().max().item(),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "ms": ms, "one_call_ms": one_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_rel_err": lib_rel,
+            "device_ms": device_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "bound_share": bound[0] / ms,
             "shape": [N_KERNEL, 2]}
+
+
+def _fit_sos_grad() -> dict:
+    """(b) the sweep over shapes and layouts, then the time at the fit's
+    shape."""
+    return {**_sos_grad_time(), "sweep": _sos_grad_sweep()}
 
 
 def _fit_inputs():
@@ -2751,8 +2874,9 @@ def phase_fit() -> dict:
     want = {k: FIT_STEPS * v for k, v in FIT_STEP_LAUNCHES.items()}
     want["cascade_scan"] += FIT_OTHER_FORWARD
     got = {k: counts[k] for k in want}
-    if got != want or any(counts[k] for k in ("wedge_env", "gain_jacobi",
-                                              "gain_p1", "gain_p2")):
+    if (got != want or counts["sos_grad_vector"] != counts["sos_grad"]
+            or any(counts[k] for k in ("wedge_env", "gain_jacobi",
+                                       "gain_p1", "gain_p2"))):
         raise AssertionError(f"fit launches {counts}, expected {want}")
     if not (math.isfinite(out["loss"]) and out["loss"] < loss0
             and out["bass_boost"] > 0.0):
@@ -4207,7 +4331,9 @@ def kernel_times(root: str) -> int:
     main path's bands; K4 on random [3, 2^23 + 1234] input (the 4-byte
     route); K2's reset route (checked against K3 + K4 and its plain
     version, its sweeps timed) on the chunked path's bands, where the
-    package has it; and the device chains (quality, compat, compat
+    package has it; sos_grad at [2^23 + 1234, 2] (checked, timed beside
+    its plain version and the library yardstick), where the package has
+    it; and the device chains (quality, compat, compat
     fallback, and those of chunked compat and quality multiband where the
     package runs them: master_graph, with the device's busy time), with the
     ame_tpu_torch package found under ROOT (default: this checkout), e.g.
@@ -4243,6 +4369,9 @@ def kernel_times(root: str) -> int:
     p2["ragged"] = _p2_kernel(*_p2_random(N_KERNEL, 3))
     if chunked:
         sweeps["reset_route"] = _reset_main(_band_max_att_chunked(x_compat))
+    pkg = os.path.dirname(ame_tpu_torch.__file__)
+    sos_grad = (_sos_grad_time() if os.path.exists(
+        os.path.join(pkg, "ops", "sos_grad.py")) else None)
     rng = np.random.default_rng(0)
     x_quality = torch.from_numpy(np.trunc(np.clip(
         0.1 * rng.standard_normal((N_MAIN, 2)), -1, 1) * 32767.0).astype(
@@ -4276,8 +4405,130 @@ def kernel_times(root: str) -> int:
     print(json.dumps({"kernel_times": {
         "package": os.path.dirname(ame_tpu_torch.__file__),
         "cascade_scan": cascades, "wedge_env": wedge, "gain_jacobi": sweeps,
-        "gain_p1": p1, "gain_p2": p2, "chains": chains,
-        "musicologist": analysis}}))
+        "gain_p1": p1, "gain_p2": p2, "sos_grad": sos_grad,
+        "chains": chains, "musicologist": analysis}}))
+    return 0
+
+
+SG_VARIANTS = (           # name, -D defines, vector route
+    ("general route", {}, False),
+    ("vector, 1 step in flight", {"SG_UNROLL": 1}, True),
+    ("vector, 2 steps (shipped)", {}, True),
+    ("vector, 4 steps", {"SG_UNROLL": 4}, True),
+    ("vector, 8 steps", {"SG_UNROLL": 8}, True),
+    ("vector, 4 steps, 264 blocks", {"SG_UNROLL": 4, "SG_BLOCKS": 264,
+                                     "SG_MIN_BLOCKS": 2}, True),
+    ("vector, 1056 blocks", {"SG_BLOCKS": 1056}, True))
+SASS_SG_OPS = ("LDG", "SHFL", "F2F.F64.F32", "DADD", "CALL", "BAR", "LDS",
+               "STS")
+
+
+def _sass_counts(so, prefix: str) -> dict:
+    """{kernel: {opcode: static count}} over the whole SASS body of each
+    kernel in `so` whose name starts with `prefix` (cuobjdump -sass); LDG
+    also by width. Empty when cuobjdump is not found."""
+    out = {}
+    for chunk in (_sass(so) or "").split("Function : ")[1:]:
+        name = _kernel_name(chunk.split(None, 1)[0])
+        if not name.startswith(prefix):
+            continue
+        ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", chunk)
+        out[name] = {"instructions": len(ops),
+                     **{k: sum(o.startswith(k) for o in ops)
+                        for k in SASS_SG_OPS},
+                     **{f"LDG {w}": sum(o.startswith("LDG") and w in o
+                                        for o in ops)
+                        for w in (".128", ".64")}}
+    return out
+
+
+def sos_grad_variants(parent: str) -> int:
+    """``--sos-grad-variants [PARENT]``: what each design step of
+    csrc/sos_grad.cu buys, on one card in one process. Builds the source of
+    the ame_tpu_torch under PARENT (an unpacked parent commit; left out
+    when not given) and this checkout's source under SG_VARIANTS' defines,
+    checks each against sos_grad_plain at [2^23 + 1234, 2] (v, w the
+    halves of one [N, 4] tensor; relative 1e-9), and times each by its C
+    entry (no wrapper: device time, 10 calls in a row) in two turns, the
+    second in reverse order. Prints each build's registers and spills and
+    the SASS opcode counts of the parent's and the shipped kernels, then
+    one {"sos_grad_variants": ...} line."""
+    from ame_tpu_torch.ops import _build
+    from ame_tpu_torch.ops.sos_grad import sos_grad_plain
+    phase_device()
+    builds = [(name, _build._CSRC / "sos_grad.cu", d, vec)
+              for name, d, vec in SG_VARIANTS]
+    if parent:
+        builds.insert(0, ("parent", os.path.join(
+            parent, "ame_tpu_torch", "csrc", "sos_grad.cu"), {}, None))
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        def build(i):
+            _, src, defines, _ = builds[i]
+            so = os.path.join(tmp, f"libsg{i}.so")
+            r = subprocess.run([nvcc, *_build.NVCC_FLAGS,
+                                *(f"-D{k}={v}" for k, v in defines.items()),
+                                "-o", so, str(src)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise AssertionError(f"nvcc {builds[i][0]}: {r.stderr}")
+            return so, r.stderr
+        with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+            built = list(pool.map(build, range(len(builds))))
+        g, v, w = _sos_grad_layouts(N_KERNEL, 2, 10)["halves"]
+        want = sos_grad_plain(g, v, w)
+        ptr = [t.data_ptr() for t in (g, v, w)]
+        ld = [t.stride(0) for t in (g, v, w)]
+        stream = torch.cuda.current_stream().cuda_stream
+        calls, rows = [], []
+        for (name, _, defines, vec), (so, log) in zip(builds, built):
+            lib = ctypes.CDLL(so)
+            lib.sos_grad_blocks.restype = ctypes.c_longlong
+            lib.sos_grad_blocks.argtypes = [ctypes.c_longlong, ctypes.c_int]
+            nb = lib.sos_grad_blocks(N_KERNEL, 2)
+            buf = torch.empty(nb * 5 + 5, dtype=torch.float64, device="cuda")
+            out = buf[nb * 5:]
+            route = [] if vec is None else [int(vec)]
+            args = (*ptr, N_KERNEL, 2, *ld, *route, buf.data_ptr(),
+                    out.data_ptr(), stream)
+            lib.sos_grad_f64.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]
+                + [ctypes.c_longlong] * 3 + [ctypes.c_int] * len(route)
+                + [ctypes.c_void_p] * 3)
+
+            def call(f=lib.sos_grad_f64, a=args):
+                if f(*a) != 0:
+                    raise AssertionError("sos_grad variant launch failed")
+            call()
+            rel = _rel_err(out.clone(), want)
+            if not rel <= SOS_GRAD_TOL:
+                raise AssertionError(f"sos_grad variant {name}: relative "
+                                     f"{rel:.3e}")
+            calls.append(call)
+            rows.append({"variant": name, "defines": defines,
+                         "blocks": nb, "max_rel_err": rel,
+                         "ptxas": _ptxas_report(log), "_lib": lib})
+            print(f"sos_grad variant {name}: {nb} blocks, relative err "
+                  f"{rel:.3e}; ptxas {_ptxas_report(log)}")
+        order = list(range(len(rows)))
+        for turn, seq in enumerate((order, order[::-1])):
+            for i in seq:
+                rows[i][f"ms_turn{turn + 1}"] = _cuda_ms(calls[i],
+                                                         KERNEL_CALLS)
+        bound = _sos_grad_bound(N_KERNEL, 2)[0]
+        for r, (so, _) in zip(rows, built):
+            del r["_lib"]
+            r["bound_share"] = bound / min(r["ms_turn1"], r["ms_turn2"])
+            if r["variant"] == "parent" or "shipped" in r["variant"]:
+                r["sass"] = _sass_counts(so, "sos_grad")
+            print(f"sos_grad variant {r['variant']}: {r['ms_turn1']:.4f} / "
+                  f"{r['ms_turn2']:.4f} ms ({r['bound_share']:.1%} of "
+                  f"{bound:.4f} ms)" + (f"; sass {r['sass']}"
+                                        if "sass" in r else ""))
+    print(json.dumps({"sos_grad_variants": {"shape": [N_KERNEL, 2],
+                                            "bound_ms": bound,
+                                            "rows": rows}}))
     return 0
 
 
@@ -4460,8 +4711,14 @@ def main() -> int:
               (sg["bound_ms"], sg["bound_by"]),
               note="K5's coefficient gradient (ame_tpu: XLA autodiff "
                    "through ame_tpu/ops/tile_conv.py:246); v and w as the "
-                   "halves of one [N, 4] tensor",
-              max_rel_err=sg["max_rel_err"], shape=sg["shape"]),
+                   "halves of one [N, 4] tensor; library_ms: torch.einsum "
+                   "over an as_strided lag view (f32 sums)",
+              max_rel_err=sg["max_rel_err"], shape=sg["shape"],
+              library_ms=sg["library_ms"],
+              library_rel_err=sg["library_rel_err"],
+              one_call_ms=sg["one_call_ms"], device_ms=sg["device_ms"],
+              vector_launches=paths["fit"]["sos_grad_vector"],
+              sweep=sg["sweep"]),
     ]
     chains = {p: {"device_chain_ms": r["chain_ms"],
                   "file_ms": r["file_s"] * 1e3,
@@ -4508,6 +4765,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else
                               os.path.dirname(os.path.abspath(__file__))))
+    if sys.argv[1:2] == ["--sos-grad-variants"]:
+        sys.exit(sos_grad_variants(sys.argv[2] if len(sys.argv) > 2 else ""))
     if sys.argv[1:2] == ["--sharded-times"]:
         sys.exit(sharded_times(sys.argv[2] if len(sys.argv) > 2 else
                                os.path.dirname(os.path.abspath(__file__))))
