@@ -8,6 +8,9 @@ NVIDIA card (or on the CPU through the plain PyTorch versions):
     (with the 3- or G-band multiband) and compat (unchunked or chunked);
     every Pallas kernel of ``ame_tpu`` is a hand-written CUDA kernel here
     (``csrc/cascade_scan.cu``, ``csrc/wedge_env.cu``, ``csrc/pydub_gain.cu``);
+    ``graph.chain.master_graph_fused`` runs the whole chain as one CUDA
+    graph, its data-dependent branches conditional nodes decided on the
+    card (``ops/_branch.py``, ``csrc/graph_if.cu``);
   * the Musicologist (``analysis/``): resample, STFT / mel features and
     the mood CNN with the shipped trained weights (``models/``), and the
     creative prompt built from its brief (``creative/prompts.py``);
@@ -44,7 +47,8 @@ NVIDIA card (or on the CPU through the plain PyTorch versions):
 The multi-device paths are still to be ported (ROADMAP.md).
 
 Entry points: ``ame_tpu_torch.api.master_file`` / ``master_array`` /
-``process_audio``, ``ame_tpu_torch.graph.chain.master_graph``,
+``process_audio``, ``ame_tpu_torch.graph.chain.master_graph`` /
+``master_graph_fused``,
 ``ame_tpu_torch.analysis.musicologist.analyze_song`` / ``analyze_batch``,
 ``ame_tpu_torch.StreamingMaster`` / ``StreamingCompatMaster``,
 ``ame_tpu_torch.serve.server.make_server`` / ``run_server``,

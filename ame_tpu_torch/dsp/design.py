@@ -3,8 +3,9 @@
 Port of ``ame_tpu/dsp/design.py``: ``butter_ba``, ``butter_sos``,
 ``reference_peak_band_sos``, ``linkwitz_riley_sos``, ``lr4_allpass_sos``,
 ``k_weighting_sos``, ``_shelf_biquad``,
-``k_weighting_dynamic_sos``, ``rbj_low_shelf``, ``rbj_high_shelf``,
-``rbj_peaking`` and their helpers ``_rbj_common`` and ``ba_to_sos_biquad``.
+``k_weighting_dynamic_sos``, ``rbj_highpass``, ``rbj_lowpass``,
+``rbj_low_shelf``, ``rbj_high_shelf``, ``rbj_peaking`` and their helpers
+``_rbj_common`` and ``ba_to_sos_biquad``.
 A jax-free copy, since importing ``ame_tpu`` imports jax.
 
 All functions return float64 numpy arrays (SOS in scipy layout [k, 6]:
@@ -93,6 +94,20 @@ def ba_to_sos_biquad(b: np.ndarray, a: np.ndarray) -> np.ndarray:
 def _rbj_common(f0: float, fs: float, q: float):
     w0 = 2.0 * math.pi * f0 / fs
     return w0, math.cos(w0), math.sin(w0) / (2.0 * q)
+
+
+def rbj_highpass(f0: float, fs: float, q: float) -> np.ndarray:
+    _, cw, alpha = _rbj_common(f0, fs, q)
+    b = np.array([(1 + cw) / 2, -(1 + cw), (1 + cw) / 2])
+    a = np.array([1 + alpha, -2 * cw, 1 - alpha])
+    return ba_to_sos_biquad(b, a)
+
+
+def rbj_lowpass(f0: float, fs: float, q: float) -> np.ndarray:
+    _, cw, alpha = _rbj_common(f0, fs, q)
+    b = np.array([(1 - cw) / 2, 1 - cw, (1 - cw) / 2])
+    a = np.array([1 + alpha, -2 * cw, 1 - alpha])
+    return ba_to_sos_biquad(b, a)
 
 
 def rbj_high_shelf(f0: float, fs: float, gain_db: float, q: float) -> np.ndarray:

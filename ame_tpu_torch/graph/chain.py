@@ -3,7 +3,8 @@
 Port of ``ame_tpu/graph/chain.py``: ``params_from_settings``, the compat
 stages ``_stage_analog_compat``, ``_stage_eq_width_compat`` and
 ``_stage_multiband_compat``, ``_stage_pre_quality``, ``_stage_normalize``,
-``_master_compat``, ``_master_quality`` and ``master_graph``. The stage order
+``_master_compat``, ``_master_quality``, ``master_graph`` and
+``master_graph_fused``. The stage order
 is the reference's (audio_mastering_engine.py:185-223): analog character ->
 EQ -> width -> multiband -> loudness normalize -> limiter, over one [N, 2]
 float32 tensor on one device.
@@ -21,11 +22,17 @@ float32 tensor on one device.
   Linkwitz-Riley multiband (3 bands, or G bands with ``mb_edges``), the
   lookahead limiter.
 
-The port runs eagerly, so there is no fused one-program variant.
+Every data-dependent decision of the chain stays on the device (the gain
+engine's sweeps, per-band fallback and silent early-out, loudnorm's
+linear/dynamic choice and silent passthrough: ``ops/_branch.device_if``),
+so ``master_graph_fused`` captures the whole chain into one CUDA graph and
+replays it with no host round trip: ``ame_tpu``'s single program. Run
+eagerly (``master_graph``), the chain reads each decision on the host once.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 
 import torch
@@ -35,20 +42,27 @@ from ame_tpu_torch import precision
 from ame_tpu_torch.config import MasterSettings
 from ame_tpu_torch.graph import multiband as mb
 from ame_tpu_torch.ops import eq, quantize, saturate, stereo
+from ame_tpu_torch.ops._branch import holding, warm_all_branches
 from ame_tpu_torch.ops.limiter import alimiter_compat, lookahead_limiter
 from ame_tpu_torch.ops.loudness import normalize_two_pass
 from ame_tpu_torch.ops.loudnorm import loudnorm_two_pass
+
+
+def _band_params(s: MasterSettings):
+    """(thresholds, ratios): the multiband stage's per-band host values."""
+    G = None if s.mb_edges is None else len(s.mb_edges) + 1
+    threshs = ((s.low_thresh, s.mid_thresh, s.high_thresh) if G is None
+               else s.mb_thresholds or (-20.0,) * G)
+    ratios = ((s.low_ratio, s.mid_ratio, s.high_ratio) if G is None
+              else s.mb_ratios or (3.0,) * G)
+    return threshs, ratios
 
 
 def params_from_settings(s: MasterSettings, device="cpu") -> dict:
     """The graph's parameters: scalars as host floats (they design the
     stages' filter coefficients on the host) and the per-band multiband
     vectors as float32 tensors on ``device``."""
-    G = None if s.mb_edges is None else len(s.mb_edges) + 1
-    threshs = ((s.low_thresh, s.mid_thresh, s.high_thresh) if G is None
-               else s.mb_thresholds or (-20.0,) * G)
-    ratios = ((s.low_ratio, s.mid_ratio, s.high_ratio) if G is None
-              else s.mb_ratios or (3.0,) * G)
+    threshs, ratios = _band_params(s)
     return {
         "analog": float(s.analog_character),
         "bass": float(s.bass_boost),
@@ -161,11 +175,9 @@ def _master_compat(x, sample_rate, p, *, analog_on, width_on, multiband_on,
     x = clock("eq_width", lambda: _stage_eq_width_compat(  # engine:194-196
         x, p["bass"], p["mid_cut"], p["presence"], p["treble"], sample_rate,
         width_on, p["width"], chunk_len))
-    if multiband_on:  # engine:197
-        # thresholds and ratios design nothing on the device: one fetch
-        threshs, ratios = p["threshs"].tolist(), p["ratios"].tolist()
+    if multiband_on:  # engine:197 (host thresholds and ratios)
         x = clock("multiband", lambda: _stage_multiband_compat(
-            x, threshs, ratios, sample_rate, chunk_len))
+            x, p["threshs"], p["ratios"], sample_rate, chunk_len))
     if lufs_on:  # engine:216-220
         x, loud_info = clock("loudnorm", lambda: _stage_normalize(
             x, p["lufs"], p["tp"], p["lra"], n_valid, sample_rate, True))
@@ -200,6 +212,43 @@ def _master_quality(x, sample_rate, p, *, analog_on, width_on, multiband_on,
     return x, info
 
 
+def _structure(settings):
+    """(settings, structure key), checked; host work only."""
+    if isinstance(settings, dict):
+        settings = MasterSettings.from_dict(settings)
+    structure = settings.structure_key()
+    if structure[0] == "compat" and structure[6] is not None:
+        raise ValueError("mb_edges (G-band multiband) is quality-mode only; "
+                         "compat mode is pinned to the reference's 3-band "
+                         "stage")
+    return settings, structure
+
+
+def _params(settings, structure, device) -> dict:
+    """The chain's params on ``device``: the compat chain takes its band
+    thresholds and ratios as host floats (they design nothing on the
+    device), the quality chain as tensors."""
+    precision.apply()
+    p = params_from_settings(settings, device)
+    if structure[0] == "compat":
+        p["threshs"], p["ratios"] = _band_params(settings)
+    return p
+
+
+def _run(x, sample_rate, p, structure, n_valid, timer=None):
+    (mode, chunked, multiband_on, analog_on, width_on, lufs_on,
+     mb_edges) = structure
+    if mode == "compat":
+        return _master_compat(
+            x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
+            multiband_on=multiband_on, lufs_on=lufs_on, chunked=chunked,
+            n_valid=n_valid, timer=timer)
+    return _master_quality(
+        x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
+        multiband_on=multiband_on, lufs_on=lufs_on, n_valid=n_valid,
+        timer=timer, mb_edges=mb_edges)
+
+
 def master_graph(x: torch.Tensor, sample_rate: float, settings,
                  n_valid: int | None = None, timer: dict | None = None) -> tuple:
     """Run the mastering graph.
@@ -216,22 +265,107 @@ def master_graph(x: torch.Tensor, sample_rate: float, settings,
       (y, info): mastered [N, 2] float32 and the loudness stats as 0-d
       tensors (when normalization ran).
     """
-    if isinstance(settings, dict):
-        settings = MasterSettings.from_dict(settings)
-    (mode, chunked, multiband_on, analog_on, width_on, lufs_on,
-     mb_edges) = settings.structure_key()
-    if mode == "compat" and mb_edges is not None:
-        raise ValueError("mb_edges (G-band multiband) is quality-mode only; "
-                         "compat mode is pinned to the reference's 3-band "
-                         "stage")
-    precision.apply()
-    p = params_from_settings(settings, x.device)
-    if mode == "compat":
-        return _master_compat(
-            x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
-            multiband_on=multiband_on, lufs_on=lufs_on, chunked=chunked,
-            n_valid=n_valid, timer=timer)
-    return _master_quality(
-        x, float(sample_rate), p, analog_on=analog_on, width_on=width_on,
-        multiband_on=multiband_on, lufs_on=lufs_on, n_valid=n_valid,
-        timer=timer, mb_edges=mb_edges)
+    settings, structure = _structure(settings)
+    return _run(x, sample_rate, _params(settings, structure, x.device),
+                structure, n_valid, timer)
+
+
+_FUSED_GRAPHS = 4        # captured chains kept per device, least recent out
+_fused: dict = {}        # device -> OrderedDict(key -> _Fused)
+
+
+class _Fused:
+    """One captured chain: its graph, the static input it reads, the static
+    outputs it writes, and what must outlive the capture (the params, the
+    cached device tables the kernels read, and the memory pool of its
+    conditional bodies: the caching allocator sends only the capturing
+    stream's own allocations to the graph's pool, so this thread's others,
+    the bodies', go to a second pool the entry releases when dropped)."""
+
+    def __init__(self, x, sample_rate, p, structure, n_valid):
+        self.x = x.clone()
+        self.keep = p
+        self.device = x.device.index
+        self.pool = None
+
+        def run():
+            return _run(self.x, sample_rate, p, structure, n_valid)
+
+        dev = x.device
+        with torch.cuda.device(dev):
+            # warm-up: every branch once, eagerly, on a side stream, so that
+            # each table, library, kernel and workspace a branch can reach
+            # is ready before the capture (an upload inside it is a fault)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), warm_all_branches():
+                run()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            pool = torch.cuda.graph_pool_handle()
+            with holding() as self.tables, torch.cuda.graph(self.graph):
+                torch._C._cuda_beginAllocateCurrentThreadToPool(self.device,
+                                                                pool)
+                self.pool = pool
+                try:
+                    self.y, self.info = run()
+                finally:
+                    torch._C._cuda_endAllocateToPool(self.device, self.pool)
+
+    def __call__(self, x):
+        self.x.copy_(x)
+        self.graph.replay()
+        return self.y.clone(), {k: v.clone() for k, v in self.info.items()}
+
+    def __del__(self):
+        graph = getattr(self, "graph", None)
+        if graph is not None:
+            graph.reset()
+        if self.pool is not None:
+            torch._C._cuda_releasePool(self.device, self.pool)
+
+
+def master_graph_fused(x: torch.Tensor, sample_rate: float, settings,
+                       n_valid: int | None = None) -> tuple:
+    """One-program variant of ``master_graph`` (``ame_tpu``'s
+    ``master_graph_fused``): on a card the whole chain is one CUDA graph,
+    captured on the first call for a key and replayed on later ones, one
+    launch and no host round trip a call; every data-dependent branch is a
+    conditional node the card decides. Returns clones of the graph's
+    outputs, so a result never aliases its buffers.
+
+    The key is the settings (every value), N, ``n_valid``, the sample rate,
+    the chunk length of chunked compat, dtype and device. Settings are
+    captured by value: their filters are designed on the host (K5's
+    coefficients travel in its launch parameters), so a new settings value
+    captures anew, where ``ame_tpu`` shares one compile across values. The
+    first call warms every branch once, then captures. The last
+    ``_FUSED_GRAPHS`` graphs are kept per device; dropping one frees its
+    memory pool. A failed capture raises; the staged chain never runs in
+    its place on a card. On the CPU (CPU tensors only) the same chain runs
+    eagerly."""
+    settings, structure = _structure(settings)
+    if x.device.type == "cpu":
+        return _run(x, sample_rate, _params(settings, structure, x.device),
+                    structure, n_valid)
+    if x.device.type != "cuda":
+        raise ValueError(f"master_graph_fused: unsupported device "
+                         f"{x.device}")
+    key = (settings, x.shape, n_valid, float(sample_rate),
+           C.COMPAT_CHUNK_SECONDS, x.dtype)
+    graphs = _fused.setdefault(x.device, collections.OrderedDict())
+    entry = graphs.get(key)
+    if entry is None:
+        try:
+            entry = _Fused(x, sample_rate,
+                           _params(settings, structure, x.device), structure,
+                           n_valid)
+        except Exception as e:
+            raise RuntimeError(f"master_graph_fused: capturing the chain "
+                               f"failed on {x.device}: {e}") from e
+        if len(graphs) >= _FUSED_GRAPHS:
+            graphs.popitem(last=False)
+        graphs[key] = entry
+    graphs.move_to_end(key)
+    return entry(x)

@@ -32,7 +32,9 @@ other; the plain PyTorch version is ``ops/tile_conv.sosfilt_tileconv``.
 kernel's REVERSE instantiation: the adjoint of the cascade, for
 ``scan_iir.SosfiltFn``); its plain version is the tile-conv on the flipped
 input. ``sosfilt_cuda.launches`` counts the calls that launched the forward
-kernel, ``sosfilt_cuda.reverse_launches`` those of the reverse one.
+kernel, ``sosfilt_cuda.reverse_launches`` those of the reverse one; a call
+recorded into a CUDA graph counts once, at capture, and not at its
+replays.
 
 Coefficients given as a tensor (a fit's designs, new every step) are
 fetched with one ``.cpu()`` and their tables prepared for that call only,
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from ame_tpu_torch.ops import _build
+from ame_tpu_torch.ops._branch import hold
 from ame_tpu_torch.ops.scan_iir import _compose_sections, _section_forms
 
 _SUB = 64           # samples per thread (SUB in cascade_scan.cu)
@@ -188,7 +191,7 @@ def sosfilt_cuda(sos, x: torch.Tensor, zi: torch.Tensor | None = None,
     if cached:
         key = sos64.tobytes()
         params = _kernel_params(key, k)
-        powers = _device_powers(key, k, logP, x.device)
+        powers = hold(_device_powers(key, k, logP, x.device))
     else:
         params = _params_np(sos64)
         powers = torch.from_numpy(_powers_np(sos64, logP)).pin_memory().to(

@@ -42,8 +42,9 @@ def _f32(v: float) -> float:
 
 def _div(t: torch.Tensor, v: float) -> torch.Tensor:
     """t / v rounded as a true f32 division (a python-scalar divisor may
-    be turned into a multiply by its reciprocal on the card)."""
-    return t / t.new_tensor(v)
+    be turned into a multiply by its reciprocal on the card). The divisor
+    is filled on t's device, not copied from the host."""
+    return t / torch.full((), v, dtype=t.dtype, device=t.device)
 
 
 def _detector_from_wsum(wsum: torch.Tensor, count: float,

@@ -45,7 +45,8 @@ def lookahead_limiter(x: torch.Tensor, sample_rate: float,
     attack_samples = max(int(attack_ms * sample_rate / 1000.0), 1)
     release_decay = math.exp(-1.0 / (release_ms * sample_rate / 1000.0))
     peak = torch.amax(x.abs(), dim=1)
-    g_t = torch.clamp(peak.new_tensor(ceiling)
+    g_t = torch.clamp(torch.full((), ceiling, dtype=peak.dtype,
+                                 device=peak.device)
                       / torch.clamp(peak, min=1e-9), max=1.0)
     g_a = W.sliding_min_ahead(g_t, attack_samples)
     g_r = W.moving_mean_past(g_a, attack_samples)
@@ -103,7 +104,8 @@ def alimiter_compat(x: torch.Tensor, sample_rate: float, limit: float = 0.98,
     A = max(int(round(attack_ms * sample_rate / 1000.0)), 1)
     R = max(release_ms * sample_rate / 1000.0, 1.0)
     peak = torch.amax(x.abs(), dim=1)
-    dep = torch.clamp(1.0 - peak.new_tensor(limit)
+    dep = torch.clamp(1.0 - torch.full((), limit, dtype=peak.dtype,
+                                       device=peak.device)
                       / torch.clamp(peak, min=1e-9), min=0.0)
     d, _ = _alimiter_depth(dep, _wedge_pieces(R), _wedge_pieces(float(A)))
     gain = 1.0 - d

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ame_tpu_torch.dsp import design
+from ame_tpu_torch.ops._branch import hold
 from ame_tpu_torch.ops.scan_iir import sosfilt
 
 
@@ -105,7 +106,7 @@ def _lra_gate(p_s: torch.Tensor, v_s: torch.Tensor) -> torch.Tensor:
     def _pct(q):
         pos = q * (n_g - 1).to(l_sorted.dtype)
         idx = torch.minimum(torch.clamp(torch.round(pos).long(), min=0), top)
-        return l_sorted[idx]
+        return l_sorted[idx.reshape(1)].reshape(())
 
     return torch.where(n_g > 0, _pct(0.95) - _pct(0.10),
                        l_sorted.new_zeros(()))
@@ -208,7 +209,7 @@ def true_peak(x: torch.Tensor) -> torch.Tensor:
     n, c = x.shape
     Lb = _TP_LB
     nb = -(-n // Lb)
-    M = _tp_matrix(x.device)
+    M = hold(_tp_matrix(x.device))
     # one leading zero tile (zero FIR history) + tail padding to a tile
     xp = F.pad(x, (0, 0, Lb, nb * Lb - n))
     xt = xp.reshape(nb + 1, Lb, c)

@@ -10,19 +10,26 @@ af_loudnorm spec, in the same parallel form (cumsums, a cumulative
 histogram, a running max of fresh frames — no per-frame loop); see the JAX
 module's docstring for the probed rules.
 
-Each ``lax.cond`` of the reference is a host branch here on a 0-d tensor
-(one ``.item()`` per decision: the linear-mode verdict and the silent-input
-passthrough). Everything else stays on the input's device. This module has
-no kernel; its K-weighting runs through ``scan_iir.sosfilt``.
+Each ``lax.cond`` of the reference (the linear-mode verdict, the
+silent-input passthrough) is a ``_branch.device_if_else`` pair on a 0-d
+tensor: two IF nodes in a captured CUDA graph, where only the branch the
+data selects runs, and one host read when run eagerly. Both branches write
+one preallocated output. Everything else stays on the input's device, with
+no host read and no host-to-device copy (numbers become 0-d tensors by a
+fill, tables are cached per device). This module has no kernel; its
+K-weighting runs through ``scan_iir.sosfilt``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ame_tpu_torch.dsp import design
+from ame_tpu_torch.ops._branch import device_if_else, hold
 from ame_tpu_torch.ops.loudness import (_power_to_lufs, gated_stats_from_hops,
                                         measure, true_peak_db)
 from ame_tpu_torch.ops.scan_iir import sosfilt
@@ -48,6 +55,19 @@ def _gauss_weights() -> np.ndarray:
 def _hist_centers() -> np.ndarray:
     return (_HIST_LO + (np.arange(_NBINS) + 0.5) * _HIST_STEP).astype(
         np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _hist_centers_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_hist_centers()).to(device)
+
+
+def _scalar(v, dtype, device) -> torch.Tensor:
+    """v as a 0-d tensor on ``device``: a tensor converted there, a number
+    filled there (a fill, not a host-to-device copy)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.full((), v, dtype=dtype, device=device)
 
 
 def _frame_len(sample_rate: float) -> int:
@@ -81,7 +101,7 @@ def _controller_gains(M0, M1, M2, peak, L: int, F_eff: int, blk_valid,
     dt, dev = M0.dtype, M0.device
 
     def s(v):
-        return torch.as_tensor(v, dtype=dt, device=dev)
+        return _scalar(v, dt, dev)
 
     target_i, target_tp, target_lra = s(target_i), s(target_tp), s(target_lra)
     measured_i, measured_thresh, offset = (s(measured_i), s(measured_thresh),
@@ -96,7 +116,7 @@ def _controller_gains(M0, M1, M2, peak, L: int, F_eff: int, blk_valid,
     blk_lufs = torch.cat([M0.new_full((3,), -1e9),
                           _power_to_lufs((cs[4:] - cs[:-4]) / (4 * L))])
 
-    bin_lufs = torch.from_numpy(_hist_centers()).to(dev)
+    bin_lufs = hold(_hist_centers_on(dev))
     bin_power = 10.0 ** ((bin_lufs + 0.691) / 10.0)
     blk_idx = torch.clamp((blk_lufs - _HIST_LO) / _HIST_STEP, 0.0,
                           float(_NBINS - 1)).to(torch.int64)
@@ -179,7 +199,7 @@ def _controller_gains(M0, M1, M2, peak, L: int, F_eff: int, blk_valid,
     fresh = ((karr >= latch_eff) & inner
              & ((st_k <= -70.0) | (st_k >= rel[k_src])))
     last_fresh = torch.cummax(torch.where(fresh, karr, -1), dim=0).values
-    fallback = d_pre[torch.clamp(latch_eff - 1, min=0)]
+    fallback = d_pre[torch.clamp(latch_eff - 1, min=0).reshape(1)].reshape(())
     post = torch.where(last_fresh >= 0, cand[torch.clamp(last_fresh, min=0)],
                        fallback)
     delta = torch.where(karr < latch_eff, d_pre, post)
@@ -370,15 +390,24 @@ def loudnorm(x: torch.Tensor, sample_rate: float, target_i: float = -24.0,
     ``linear_mode`` 1.0/0.0 and ``gain_db`` (0.0 when dynamic ran)."""
     if x.ndim == 1:
         x = x[:, None]
-    zero = x.new_zeros(())
     if measured is None:
+        zero = x.new_zeros(())
         y, out = dynamic_loudnorm(x, sample_rate, target_i, target_tp,
                                   target_lra)
         return y, {"linear_mode": zero, "gain_db": zero, **out}
+    y = torch.empty_like(x)
+    return y, _pass2(x, y, sample_rate, target_i, target_tp, target_lra,
+                     measured, offset, linear, n_valid)
 
+
+def _pass2(x, y, sample_rate, target_i, target_tp, target_lra, measured,
+           offset, linear, n_valid) -> dict:
+    """``loudnorm`` with ``measured`` stats, its output written into y:
+    the linear gain or the dynamic engine, chosen on the device."""
     def s(v):
-        return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+        return _scalar(v, x.dtype, x.device)
 
+    zero = x.new_zeros(())
     m_i, m_tp = s(measured["input_i"]), s(measured["input_tp"])
     m_lra, m_th = s(measured["input_lra"]), s(measured["input_thresh"])
     # ffmpeg ignores ``offset`` in linear mode (gain = target_i − measured_i
@@ -389,17 +418,25 @@ def loudnorm(x: torch.Tensor, sample_rate: float, target_i: float = -24.0,
     lin_ok = (supplied & (m_tp + gain_db <= target_tp)
               & (m_lra <= target_lra)) if linear else torch.zeros(
                   (), dtype=torch.bool, device=x.device)
-    if bool(lin_ok.item()):
-        y = x * 10.0 ** (gain_db / 20.0)
-        out_i, out_th = m_i + gain_db, m_th + gain_db
-    else:
-        y, out = dynamic_loudnorm(x, sample_rate, target_i, target_tp,
-                                  target_lra, m_i, m_th, offset=offset,
-                                  n_valid=n_valid)
-        out_i, out_th = out["output_i"], out["output_thresh"]
-    return y, {"linear_mode": lin_ok.to(x.dtype),
-               "gain_db": torch.where(lin_ok, gain_db, zero),
-               "output_i": out_i, "output_thresh": out_th}
+    out_i, out_th = x.new_empty(()), x.new_empty(())
+
+    def linear_gain():
+        torch.mul(x, 10.0 ** (gain_db / 20.0), out=y)
+        out_i.copy_(m_i + gain_db)
+        out_th.copy_(m_th + gain_db)
+
+    def dynamic():
+        yd, out = dynamic_loudnorm(x, sample_rate, target_i, target_tp,
+                                   target_lra, m_i, m_th, offset=offset,
+                                   n_valid=n_valid)
+        y.copy_(yd)
+        out_i.copy_(out["output_i"])
+        out_th.copy_(out["output_thresh"])
+
+    device_if_else(lin_ok, linear_gain, dynamic)
+    return {"linear_mode": lin_ok.to(x.dtype),
+            "gain_db": torch.where(lin_ok, gain_db, zero),
+            "output_i": out_i, "output_thresh": out_th}
 
 
 def loudnorm_two_pass(x: torch.Tensor, sample_rate: float,
@@ -413,12 +450,22 @@ def loudnorm_two_pass(x: torch.Tensor, sample_rate: float,
         x = x[:, None]
     stats = loudnorm_pass1(x, sample_rate, target_i, target_tp, target_lra,
                            n_valid=n_valid, full=False)
-    if not bool(torch.isfinite(stats["input_i"]).item()):
-        zero = x.new_zeros(())
-        return x, {**stats, "linear_mode": zero, "gain_db": zero,
-                   "output_i": stats["input_i"],
-                   "output_thresh": stats["input_thresh"]}
-    y, info = loudnorm(x, sample_rate, target_i, target_tp, target_lra,
-                       measured=stats, offset=stats["target_offset"],
-                       n_valid=n_valid)
+    y = torch.empty_like(x)
+    info = {k: x.new_empty(()) for k in ("linear_mode", "gain_db",
+                                         "output_i", "output_thresh")}
+
+    def pass2():
+        for k, v in _pass2(x, y, sample_rate, target_i, target_tp,
+                           target_lra, stats, stats["target_offset"], True,
+                           n_valid).items():
+            info[k].copy_(v)
+
+    def passthrough():
+        y.copy_(x)
+        info["linear_mode"].zero_()
+        info["gain_db"].zero_()
+        info["output_i"].copy_(stats["input_i"])
+        info["output_thresh"].copy_(stats["input_thresh"])
+
+    device_if_else(torch.isfinite(stats["input_i"]), pass2, passthrough)
     return y, {**stats, **info}

@@ -25,8 +25,12 @@ exact engines are the reference's:
 On a CUDA tensor the engine (``_gain_engine``) launches the hand-written
 kernels of ``ame_tpu_torch/csrc/pydub_gain.cu`` — ``gain_jacobi`` (K2,
 ``_jac_kernel``), ``gain_p1`` (K3, ``_p1_kernel``) and ``gain_p2`` (K4,
-``_p2_kernel``) — at any length; the sweep loop lives on the host and
-synchronises once per sweep for the verdict. The reference's ``_SCAN_MAX``
+``_p2_kernel``) — at any length. Every verdict stays on the device, as
+in ``ame_tpu``: the sweep slots, the per-band fallback and the all-silent
+early-out are ``_branch.device_if`` nodes, so the engine can be captured
+into a CUDA graph (``graph.chain.master_graph_fused``) with no host read;
+run eagerly it reads each verdict once (once a sweep). The reference's
+``_SCAN_MAX``
 route and ``AME_TPU_GAIN_*`` knobs are TPU compile-cost rules and are not
 ported. On a CPU tensor the engine runs the same control flow over the
 kernels' plain versions (``*_plain``), each a form of the plain sequential
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from ame_tpu_torch.ops import _build
+from ame_tpu_torch.ops._branch import device_if, device_if_else
 
 _K = 32          # start-state stride (samples per group) of the two-pass
 _TB = 4096       # pass-1 walk block of the reference (sets _pad_block)
@@ -310,6 +315,8 @@ def gain_jacobi_plain(m_t: torch.Tensor, carry: torch.Tensor, inv_a: float,
     return att_t[-1].clone(), (att_t if full else None)
 
 
+# ``launches``: the calls that launched each kernel. A call recorded into a
+# CUDA graph counts once, at capture, and not at its replays.
 for _fn in (gain_p1_cuda, gain_p2_cuda, gain_jacobi_cuda):
     _fn.launches = 0
 # launches of K2's reset route and K3 with flags (within the counts above)
@@ -361,7 +368,14 @@ def _jacobi_carries(m_t: torch.Tensor, G: int, S: int, init: torch.Tensor,
     """Relax the segment carries of G chains. m_t: [seg_len, G*S]
     time-major (lane g*S + s is segment s of chain g); init: [G]; resets:
     the group flags [S*seg_len/32] shared by the chains, or None.
-    Returns (carries [G, S], converged [G] bool tensor, sweeps)."""
+    Returns (carries [G, S], converged [G] bool, sweeps: 0-d int64), all on
+    m_t's device.
+
+    ``ame_tpu``'s ``lax.while_loop`` as ``_RMAX`` sweep slots: the first
+    always runs (its condition holds at the start), each later one is a
+    ``device_if`` on ``go``, which the sweep before computed on the device
+    with the stall rule. Eagerly the slots stop at the first ``go`` that
+    reads false: one read a sweep."""
     jacobi = _kernels(m_t.device)[0]
     dev = m_t.device
     # identity segments are bridged by the last non-identity segment at or
@@ -379,24 +393,30 @@ def _jacobi_carries(m_t: torch.Tensor, G: int, S: int, init: torch.Tensor,
 
     c = torch.cat([init_col, init_col.new_zeros((G, S - 1))], dim=1)
     done = torch.zeros(G, dtype=torch.bool, device=dev)
-    j, nstab, prev_stab = 0, 0, 0
-    while j < _RMAX:
-        # stall rule: from sweep 3 on, stop when the current resolution
-        # rate cannot cover the unresolved carries in the sweeps left
-        rate = max(nstab - prev_stab, 0)
-        if j >= 3 and rate * (_RMAX - j) < G * S - nstab:
-            break
-        co, _ = jacobi(m_t, c.reshape(-1).contiguous(), inv_a, inv_r, False,
-                       resets)
+    j, nstab, prev_stab = (torch.zeros((), dtype=torch.int64, device=dev)
+                           for _ in range(3))
+    go = torch.ones((), dtype=torch.bool, device=dev)
+
+    def sweep():
+        co, _ = jacobi(m_t, c.reshape(-1), inv_a, inv_r, False, resets)
         nxt = refresh(co.reshape(G, S))
         stable = nxt == c                      # bit-exact acceptance
-        done = torch.all(stable, dim=1)
-        verdict = torch.cat([done.to(torch.int64),
-                             stable.sum().reshape(1)]).tolist()
-        prev_stab, nstab = nstab, int(verdict[-1])
-        c = nxt
-        j += 1
-        if all(verdict[:-1]):
+        torch.all(stable, dim=1, out=done)
+        prev_stab.copy_(nstab)
+        nstab.copy_(stable.sum())
+        c.copy_(nxt)
+        j.add_(1)
+        # stall rule (ame_tpu/ops/pydub_gain.py:482-487): from sweep 3 on,
+        # stop when the current resolution rate cannot cover the
+        # unresolved carries in the sweeps left
+        rate = torch.clamp(nstab - prev_stab, min=0)
+        progressing = (j < 3) | (rate * (_RMAX - j) >= G * S - nstab)
+        torch.logical_and((j < _RMAX) & ~torch.all(done), progressing,
+                          out=go)
+
+    sweep()
+    for _ in range(_RMAX - 1):
+        if not device_if(go, sweep):
             break
     return c, done, j
 
@@ -410,46 +430,77 @@ def _two_pass(m: torch.Tensor, init: torch.Tensor, inv_a: float,
     return p2(m, starts, inv_a, inv_r)
 
 
-def _jacobi(m: torch.Tensor, init: torch.Tensor, inv_a: float,
-            inv_r: float, resets: torch.Tensor | None = None):
-    """The Jacobi half of the engine. m [G, N]; resets None or [ceil(N/32)]
-    group flags (K3's form). -> (att [G, N], or None when no chain
-    converged; converged [G] host bools; sweeps)."""
+def _jacobi_layout(m: torch.Tensor, resets: torch.Tensor | None):
+    """m [G, N] -> (m_t [seg_len, G*S] time-major, the group flags padded
+    to the segments or None, S): the one transpose; zero padding is the
+    below-threshold freeze, exact, and trimmed afterwards."""
     G, n = m.shape
-    jacobi = _kernels(m.device)[0]
     npad = _pad_block(n)
     S = _select_S(npad)
-    seg_len = npad // S
-    # the one transpose to time-major [seg_len, G*S]: zero padding is the
-    # below-threshold freeze, exact, and trimmed afterwards
     m_t = torch.nn.functional.pad(m, (0, npad - n)).reshape(
-        G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
+        G, S, npad // S).permute(2, 0, 1).reshape(npad // S,
+                                                  G * S).contiguous()
     if resets is not None:
         resets = torch.nn.functional.pad(resets,
                                          (0, npad // _K - resets.shape[0]))
-    c_fix, ok, sweeps = _jacobi_carries(m_t, G, S, init, inv_a, inv_r,
-                                        resets)
-    ok = ok.tolist()
-    if not any(ok):
-        return None, ok, sweeps
-    _, att_t = jacobi(m_t, c_fix.reshape(-1).contiguous(), inv_a, inv_r,
-                      True, resets)
-    att = att_t.reshape(seg_len, G, S).permute(1, 2, 0).reshape(G, npad)
-    return att[:, :n].contiguous(), ok, sweeps
+    return m_t, resets, S
+
+
+def _jacobi_full(att: torch.Tensor, ok: torch.Tensor, m_t: torch.Tensor,
+                 c: torch.Tensor, S: int, inv_a: float, inv_r: float,
+                 resets: torch.Tensor | None) -> None:
+    """The full sweep from the relaxed carries c [G, S], written into the
+    converged chains' rows of att [G, N] (the others keep theirs)."""
+    G, n = att.shape
+    seg_len = m_t.shape[0]
+    _, att_t = _kernels(m_t.device)[0](m_t, c.reshape(-1), inv_a, inv_r,
+                                       True, resets)
+    jac = att_t.reshape(seg_len, G, S).permute(1, 2, 0).reshape(
+        G, S * seg_len)[:, :n]
+    torch.where(ok[:, None], jac, att, out=att)
+
+
+def _jacobi(m: torch.Tensor, init: torch.Tensor, inv_a: float,
+            inv_r: float, resets: torch.Tensor | None = None):
+    """The Jacobi half of the engine alone. m [G, N]; resets None or
+    [ceil(N/32)] group flags (K3's form). -> (att [G, N]: the full sweep's
+    rows of the converged chains, the others unset; converged [G] bool;
+    sweeps, 0-d)."""
+    m_t, resets, S = _jacobi_layout(m, resets)
+    c, ok, sweeps = _jacobi_carries(m_t, m.shape[0], S, init, inv_a, inv_r,
+                                    resets)
+    att = torch.empty_like(m)
+    device_if(torch.any(ok),
+              lambda: _jacobi_full(att, ok, m_t, c, S, inv_a, inv_r, resets))
+    return att, ok, sweeps
 
 
 def _gain_engine_hot(m: torch.Tensor, init: torch.Tensor, inv_a: float,
-                     inv_r: float,
-                     resets: torch.Tensor | None = None) -> torch.Tensor:
-    """Jacobi with the per-band two-pass fallback. m [G, N] -> att [G, N];
-    resets None or [ceil(N/32)] group flags, given to both engines."""
-    att, ok, _ = _jacobi(m, init, inv_a, inv_r, resets)
-    if all(ok):
-        return att
-    tp = _two_pass(m, init, inv_a, inv_r, resets)
-    if att is None:
-        return tp
-    return torch.where(torch.tensor(ok, device=m.device)[:, None], att, tp)
+                     inv_r: float, resets: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """Jacobi with the per-band two-pass fallback. m [G, N] -> att [G, N]
+    (written into ``out`` when given); resets None or [ceil(N/32)] group
+    flags, given to both engines.
+
+    The verdicts stay on the device, as ``ame_tpu``'s ``lax.cond`` pair
+    (:593-613): K3 + K4 for every chain under ``device_if(~all(ok))``, then
+    the full sweep under ``device_if(any(ok))`` over the converged rows.
+    Eagerly, when every chain converged, the second verdict is known and
+    not read."""
+    m_t, resets_p, S = _jacobi_layout(m, resets)
+    c, ok, _ = _jacobi_carries(m_t, m.shape[0], S, init, inv_a, inv_r,
+                               resets_p)
+    att = torch.empty_like(m) if out is None else out
+
+    def full():
+        _jacobi_full(att, ok, m_t, c, S, inv_a, inv_r, resets_p)
+
+    if device_if(~torch.all(ok), lambda: att.copy_(
+            _two_pass(m, init, inv_a, inv_r, resets))):
+        device_if(torch.any(ok), full)
+    else:
+        full()
+    return att
 
 
 def _gain_engine(m: torch.Tensor, init: torch.Tensor, inv_a: float,
@@ -460,9 +511,10 @@ def _gain_engine(m: torch.Tensor, init: torch.Tensor, inv_a: float,
     everywhere exactly (resets zero a zero state), and no kernel runs.
     m [G, N] -> att [G, N]; resets None or [ceil(N/32)] group flags."""
     silent = torch.logical_and(torch.all(init == 0.0), torch.all(m == 0.0))
-    if bool(silent.item()):
-        return torch.zeros_like(m)
-    return _gain_engine_hot(m, init, inv_a, inv_r, resets)
+    att = torch.empty_like(m)
+    device_if_else(silent, att.zero_, lambda: _gain_engine_hot(
+        m, init, inv_a, inv_r, resets, out=att))
+    return att
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +582,7 @@ def _chunk_layout(m: torch.Tensor, chunk_len: int):
     m1 = torch.nn.functional.pad(rows, (0, cpad - chunk_len)).reshape(
         G, nc * cpad)
     resets = m.new_zeros(nc * cpad // _K)
-    resets[::cpad // _K] = 1.0
+    resets[::cpad // _K].fill_(1.0)
     return m1.contiguous(), resets
 
 

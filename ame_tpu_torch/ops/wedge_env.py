@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ame_tpu_torch.ops import _build
+from ame_tpu_torch.ops._branch import hold
 from ame_tpu_torch.ops import window as W
 
 _SUB = 32            # samples per walker thread (SUB in wedge_env.cu)
@@ -102,7 +103,9 @@ def wedge_env_plain(dep: torch.Tensor, pieces, reverse: bool) -> torch.Tensor:
 def wedge_env_cuda(dep: torch.Tensor, pieces, reverse: bool) -> torch.Tensor:
     """One direction of the wedge envelope on the card. dep: contiguous [N]
     float32 CUDA tensor (depths >= 0); pieces: the 6 host (a, rho) pairs
-    of ``limiter._wedge_pieces``. Returns env [N]."""
+    of ``limiter._wedge_pieces``. Returns env [N]. ``wedge_env_cuda
+    .launches`` counts the calls that launched it; a call recorded into a
+    CUDA graph counts once, at capture, and not at its replays."""
     if not dep.is_cuda:
         raise ValueError("wedge_env_cuda needs a CUDA tensor; CPU tensors go "
                          "through wedge_env_plain")
@@ -121,7 +124,7 @@ def wedge_env_cuda(dep: torch.Tensor, pieces, reverse: bool) -> torch.Tensor:
     sub, log_tp, nb = _geometry(n)
     a, rho = _piece_arrays(pieces)
     params = np.concatenate([a, rho])
-    powers = _device_powers(pieces, dep.device)
+    powers = hold(_device_powers(pieces, dep.device))
     lib = _lib()
     env = torch.empty_like(dep)
     # one scratch allocation: S [nb, 6, 2^log_tp], E and C [6, nb]

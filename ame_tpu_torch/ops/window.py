@@ -1,9 +1,9 @@
 """Sliding-window primitives for the limiter (PyTorch port).
 
 Port of ``ame_tpu/ops/window.py``: ``sliding_min_ahead``,
-``_moving_sum_matrix`` / ``_moving_sum_tiles``, ``moving_sum_past``,
-``moving_mean_past``, ``windowed_sum_exclusive`` and ``release_scan``. All run along axis 0 on the
-input's device. The van Herk / Gil-Werman decomposition keeps every partial
+``sliding_max_ahead``, ``_moving_sum_matrix`` / ``_moving_sum_tiles``,
+``moving_sum_past``, ``moving_mean_past``, ``windowed_sum_exclusive`` and
+``release_scan``. All run along axis 0 on the input's device. The van Herk / Gil-Werman decomposition keeps every partial
 reduction bounded by one window (no long-cumsum cancellation in f32).
 """
 
@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ame_tpu_torch.ops._branch import hold
 
 
 def _pad_to_blocks(x: torch.Tensor, w: int, fill: float):
@@ -43,6 +45,10 @@ def sliding_min_ahead(x: torch.Tensor, w: int) -> torch.Tensor:
     nxt = torch.where(valid.reshape(_bshape(x, flat_len)), nxt,
                       torch.full_like(nxt, float("inf")))
     return torch.minimum(flat_suf, nxt)[:n]
+
+
+def sliding_max_ahead(x: torch.Tensor, w: int) -> torch.Tensor:
+    return -sliding_min_ahead(-x, w)
 
 
 _LB = 128  # tile length for the matmul formulation
@@ -77,7 +83,8 @@ def _moving_sum_tiles(x: torch.Tensor, w: int) -> torch.Tensor:
     xp = F.pad(x, (0, 0, p * Lb, nb * Lb - n))
     xt = xp.reshape(nb + p, Lb, c)
     xcat = torch.cat([xt[i:i + nb] for i in range(p + 1)], dim=1)
-    y = torch.einsum("tv,bvc->btc", _moving_sum_band(w, p, x.device), xcat)
+    y = torch.einsum("tv,bvc->btc", hold(_moving_sum_band(w, p, x.device)),
+                     xcat)
     y = y.reshape(nb * Lb, c)[:n]
     return y[:, 0] if squeeze else y
 

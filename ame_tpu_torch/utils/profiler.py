@@ -5,22 +5,25 @@ deployment reaches for when it asks "where does the time go?").
 ``profile_master`` measures, for one (track, settings) pair, on ``device``
 (the card unless the caller asks for the CPU):
 
-  * ``cold_start_s``: the first ``master_graph`` call to completion,
-    including the kernels' ``nvcc`` builds (when nothing is built yet) and
-    their table preparation;
+  * ``cold_start_s``: the first ``master_graph_fused`` call to completion,
+    including the kernels' ``nvcc`` builds (when nothing is built yet),
+    their table preparation, the warm-up of every branch and the capture
+    of the chain into one CUDA graph;
   * ``fetch_rtt_ms``: a one-scalar ``.item()`` on a finished tensor;
-  * ``steady_ms``: the median over ``runs`` of ``master_graph``'s device
-    time between CUDA events (the host clock on the CPU), with
-    ``steady_ms_min``; ``steady_host_ms`` beside it is the host clock from
-    the call to completion; ``x_realtime`` = track seconds / ``steady_ms``;
-  * ``stages_ms``: ``master_graph(timer=)``'s per-stage times (CUDA-event
-    spans with no sync between stages; ``ame_tpu``'s stage names);
+  * ``steady_ms``: the median over ``runs`` of a ``master_graph_fused``
+    call's device time between CUDA events (a replay, with its input copy
+    and output clones; the host clock on the CPU, where the chain runs
+    eagerly), with ``steady_ms_min``; ``steady_host_ms`` beside it is the
+    host clock from the call to completion; ``x_realtime`` = track seconds
+    / ``steady_ms``;
+  * ``stages_ms``: the staged chain's per-stage times
+    (``master_graph(timer=)``: CUDA-event spans with no sync between
+    stages; ``ame_tpu``'s stage names), with ``stages_note``;
   * ``host_rss_mb`` and ``hbm_peak_mb`` (the allocator's peak on each card
     this process uses: ``utils/telemetry``).
 
-``ame_tpu``'s fused single program (``master_graph_fused``) is not carried
-into the port; the staged chain is the only program, so ``steady_ms`` and
-the stage sum time the same work.
+As in ``ame_tpu``, cold start and steady state come from the fused single
+program and the stage breakdown from the staged chain.
 
 ``trace_dir`` wraps the steady loop in ``torch.profiler``
 (``telemetry.profile_trace``) and writes a Chrome trace there. A trap:
@@ -49,7 +52,7 @@ def profile_master(x, sample_rate: float, settings, runs: int = 10,
     ``n_samples``, ``sample_rate``, ``seconds``, ``mode``, ``runs``,
     ``device`` and, with a trace, ``trace_dir``)."""
     from ame_tpu_torch.config import MasterSettings
-    from ame_tpu_torch.graph.chain import master_graph
+    from ame_tpu_torch.graph.chain import master_graph, master_graph_fused
 
     dev = resolve_device(device, "profile_master")
     if isinstance(settings, dict):
@@ -68,9 +71,9 @@ def profile_master(x, sample_rate: float, settings, runs: int = 10,
         "device": str(dev),
     }
 
-    # cold start: kernel builds, table preparation and the first run
+    # cold start: kernel builds, table preparation, warm-up and capture
     t0 = time.perf_counter()
-    y, _ = master_graph(x, sample_rate, settings)
+    y, _ = master_graph_fused(x, sample_rate, settings)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     report["cold_start_s"] = round(time.perf_counter() - t0, 3)
@@ -80,18 +83,18 @@ def profile_master(x, sample_rate: float, settings, runs: int = 10,
     report["fetch_rtt_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
 
     def _one_run():
-        """(device ms, host ms) of one master_graph call to completion."""
+        """(device ms, host ms) of one fused call to completion."""
         t0 = time.perf_counter()
         if dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            master_graph(x, sample_rate, settings)
+            master_graph_fused(x, sample_rate, settings)
             end.record()
             end.synchronize()
             host = (time.perf_counter() - t0) * 1e3
             return start.elapsed_time(end), host
-        master_graph(x, sample_rate, settings)
+        master_graph_fused(x, sample_rate, settings)
         host = (time.perf_counter() - t0) * 1e3
         return host, host
 
@@ -118,9 +121,10 @@ def profile_master(x, sample_rate: float, settings, runs: int = 10,
         report["stages_ms"] = {name: round(t / k * 1e3, 3)
                                for name, t in sink.items()}
         report["stages_note"] = (
-            "per-stage device time between CUDA events, no sync between "
-            "stages (host clock on the CPU); the stages run back to back, "
-            "so their sum is close to steady_ms")
+            "per-stage times of the staged chain: device time between CUDA "
+            "events, no sync between stages (host clock on the CPU); their "
+            "sum exceeds steady_ms where the staged chain waits on the "
+            "host's launches and reads, which the fused program does not")
 
     report["host_rss_mb"] = telemetry.host_rss_mb()
     mem = telemetry.device_memory_stats()

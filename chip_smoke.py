@@ -9,7 +9,8 @@ failure raises and the script exits non-zero without the final line:
 
   1. device: the card's name and nvidia-smi's name / power limit line;
   2. build: compiles ame_tpu_torch/csrc/{cascade_scan,wedge_env,pydub_gain,
-     sos_grad}.cu from the checkout, one nvcc each, all started together;
+     sos_grad,graph_if}.cu from the checkout, one nvcc each, all started
+     together;
      prints each
      kernel's registers and spills, and the opcodes in the hot loop of
      gain_p1's walker and of its floor kernel (cuobjdump -sass);
@@ -254,12 +255,33 @@ failure raises and the script exits non-zero without the final line:
      and flagship), and K5 on each of the stack's cascades at [2^23, 8]
      (the smoother at [2^23, 12]) against its plain version from a
      non-zero zi (1e-4), timed with its bound;
- 19. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
+ 19. the fused chain (graph/chain.master_graph_fused: one CUDA graph a
+     settings key, every branch of the chain a conditional node decided on
+     the card, ops/_branch.py and csrc/graph_if.cu) on the quality, compat,
+     compat fallback, compat_chunked and its fallback, quality_mb and
+     quality_mb16 inputs of the phases above, a compat input that sends
+     loudnorm dynamic (quiet noise with full-scale clicks) and a silent
+     track: each from an empty cache, master_graph first (its launches
+     counted: K5 3 quality, 7 compat; K3 only on the fallback inputs),
+     then the warm-up and capture (seconds, the graph's pools' bytes, the
+     launches counted at capture) and 3 replays under
+     torch.cuda.set_sync_debug_mode("error"), each held to master_graph
+     within the parity limits (quality 2e-4 abs, gain 0.01 dB; compat
+     relative L2 < 3e-3 or max abs <= 2/32768; linear_mode equal); replay
+     and staged times (CUDA events) and host us a call; one compat graph
+     captured on the compat input replaying the fallback, dynamic and
+     silent inputs; and, in a process of its own (``--fused-profile
+     TMP``), each input's kernel records a replay against a staged run's
+     under torch.profiler (the port's kernels' records must be equal: the
+     same K2 sweeps, K3 / K4 only where the staged engine fell back),
+     busy ms and idle share;
+ 20. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
      a {"musicologist": ...} line, a {"streaming": ...} line, a {"fit":
      ...} line, a {"train": ...} line, a {"serve": ...} line, a
      {"surfaces": ...} line, a {"sharded": ...} line, a {"train_sharded":
-     ...} line, a {"stacked": ...} line, then the last line {"ok": true,
-     "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+     ...} line, a {"stacked": ...} line, a {"fused": ...} line, then the
+     last line {"ok": true, "device": {"platform": "gpu", "kind": ...,
+     "count": ...}}.
 
 Run alone, without the repository's ame_tpu_torch package beside it, the
 script stops after phase 1 with a non-zero exit and prints no result.
@@ -453,7 +475,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     from ame_tpu_torch.ops import _build
     names = tuple(n for n in ("cascade_scan", "wedge_env", "pydub_gain",
-                              "sos_grad")
+                              "sos_grad", "graph_if")
                   if (_build._CSRC / f"{n}.cu").exists())
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(_build.build, names))
@@ -1009,6 +1031,7 @@ def phase_gain(m_main: torch.Tensor, m_chunked: torch.Tensor) -> dict:
     m = torch.from_numpy(m).cuda()
     z3 = torch.zeros(3, device="cuda")
     att_j, ok, sweeps = pg._jacobi(m, z3, ia, ir)
+    ok, sweeps = [bool(v) for v in ok], int(sweeps)
     ref = walk(m, ia, ir)
     if not all(ok) or not torch.equal(att_j, ref):
         raise AssertionError(f"(a) gain_jacobi: converged {ok}, max diff "
@@ -1024,6 +1047,7 @@ def phase_gain(m_main: torch.Tensor, m_chunked: torch.Tensor) -> dict:
     mt = torch.full((1, N_GAIN_PLAIN), 10.0, device="cuda")
     z1 = torch.zeros(1, device="cuda")
     _, ok_t, sweeps_t = pg._jacobi(mt, z1, ia_t, ir_t)
+    ok_t, sweeps_t = [bool(v) for v in ok_t], int(sweeps_t)
     tp = pg._two_pass(mt, z1, ia_t, ir_t)
     ref_t = walk(mt, ia_t, ir_t)
     if any(ok_t) or not torch.equal(tp, ref_t):
@@ -1055,6 +1079,7 @@ def phase_gain(m_main: torch.Tensor, m_chunked: torch.Tensor) -> dict:
     # (c) the compat main path's bands at 2^23: two algorithms, one answer
     G, n = m_main.shape
     att_c, ok_c, sweeps_c = pg._jacobi(m_main, z3, ia, ir)
+    ok_c, sweeps_c = [bool(v) for v in ok_c], int(sweeps_c)
     tp_c = pg._two_pass(m_main, z3, ia, ir)
     if not all(ok_c) or not torch.equal(att_c, tp_c):
         raise AssertionError(f"(c) converged {ok_c}; jacobi vs two-pass max "
@@ -1346,6 +1371,7 @@ def _reset_small() -> dict:
         seg_len, G * S).contiguous()
     z = torch.zeros(G, device="cuda")
     c_fix, ok, sweeps = pg._jacobi_carries(m_t, G, S, z, ia, ir, flags)
+    sweeps = int(sweeps)
     if not ok.all().item():
         raise AssertionError(f"(e) relaxation did not converge: {ok}")
     carries = {"first": torch.cat([z[:, None], z.new_zeros(G, S - 1)], 1),
@@ -1382,6 +1408,7 @@ def _reset_main(m_chunked: torch.Tensor) -> dict:
     G, n = m1.shape
     z = torch.zeros(G, device="cuda")
     att_j, ok, sweeps = pg._jacobi(m1, z, ia, ir, flags)
+    ok, sweeps = [bool(v) for v in ok], int(sweeps)
     tp = pg._two_pass(m1, z, ia, ir, flags)
     if not all(ok) or not torch.equal(att_j, tp):
         raise AssertionError(f"(f) converged {ok}; reset-route Jacobi vs "
@@ -2270,6 +2297,7 @@ def _stream_gain_tails() -> list:
         want = pg._gain_scan(m.T.contiguous(), ia, ir, init).T
         _zero_counts()
         att_j, ok, sweeps = pg._jacobi(m, init, ia, ir)
+        ok, sweeps = [bool(v) for v in ok], int(sweeps)
         att_t = pg._two_pass(m, init, ia, ir)
         counts = _read_counts()
         err_t = (att_t - want).abs().max().item()
@@ -3949,6 +3977,7 @@ def _sp_gain(xc: torch.Tensor) -> dict:
     m_t = torch.nn.functional.pad(ms, (0, npad - ln)).reshape(
         G, S, seg_len).permute(2, 0, 1).reshape(seg_len, G * S).contiguous()
     c_fix, ok, sweeps = pg._jacobi_carries(m_t, G, S, init, ia, ir)
+    sweeps = int(sweeps)
     if not ok.all().item():
         raise AssertionError(f"the second shard's chains from init "
                              f"{init.tolist()}: carries converged "
@@ -4286,6 +4315,234 @@ def phase_train_sharded_stacked(tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the fused chain (graph/chain.master_graph_fused)
+# ---------------------------------------------------------------------------
+
+FUSED_REPLAYS = 3
+FUSED_KERNELS = ("cascade_", "wedge_", "gain_", "graph_if")   # the port's
+FALLBACK_INPUTS = ("compat_fallback", "compat_chunked_fallback")
+
+
+def _dynamic_compat_input(n: int) -> np.ndarray:
+    """Quiet 0.01 N(0,1) noise (seed 3) with a full-scale click every
+    second: the linear gain would break the true-peak target, so loudnorm
+    goes dynamic."""
+    x = 0.01 * np.random.default_rng(3).standard_normal((n, 2))
+    x[::SR] = 0.9
+    return x.astype(np.float32)
+
+
+def _fused_inputs(tmp: str) -> list:
+    """(name, settings, x on the card) of phase 19: phase 4's quality track
+    (plain, 3 and 16 bands), phase 8's compat input and steady noise (plain
+    and chunked: the converging engine and its fallback), the dynamic-
+    loudnorm input and a silent track, as master_array stages them."""
+    from ame_tpu_torch.io.wav import read_wav
+    from ame_tpu_torch.ops.quantize import int16_roundtrip
+    pcm, _ = read_wav(os.path.join(tmp, "in.wav"), prefer_int16=True)
+    xq = torch.from_numpy(pcm).cuda().to(torch.float32) * (1.0 / 32768.0)
+    xc = _compat_x(tmp)[2]
+    xs = _steady_x(tmp)[1]
+    xd = int16_roundtrip(torch.from_numpy(
+        _dynamic_compat_input(N_MAIN)).cuda())
+    xz = torch.zeros((N_MAIN, 2), device="cuda")
+    return [("quality", FLAGSHIP, xq), ("compat", COMPAT, xc),
+            ("compat_fallback", COMPAT, xs),
+            ("compat_chunked", COMPAT_CHUNKED, xc),
+            ("compat_chunked_fallback", COMPAT_CHUNKED, xs),
+            ("quality_mb", QUALITY_MB, xq),
+            ("quality_mb16", QUALITY_MB16, xq),
+            ("compat_dynamic", COMPAT, xd), ("compat_silent", COMPAT, xz)]
+
+
+def _fused_err(settings: dict, got, want) -> float:
+    """Max abs difference of a fused master from master_graph's, held to
+    the parity limits (PERF.md section 2): quality 2e-4 abs and the gain
+    within 0.01 dB; compat relative L2 < 3e-3 or max abs <= 2/32768; the
+    same linear_mode."""
+    (y, info), (y0, i0) = got, want
+    max_abs = (y - y0).abs().max().item()
+    if settings.get("mode") == "compat":
+        rel = ((y - y0).norm() / (y0.norm() + 1e-12)).item()
+        ok = rel < 3e-3 or max_abs <= 2.0 / 32768.0
+    else:
+        ok = max_abs <= PARITY_TOL
+    g, g0 = float(info["gain_db"]), float(i0["gain_db"])
+    ok = (ok and (g == g0 or abs(g - g0) <= GAIN_TOL_DB)
+          and float(info["linear_mode"]) == float(i0["linear_mode"]))
+    if not ok:
+        raise AssertionError(f"fused vs master_graph: max abs {max_abs}, "
+                             f"gain {g} vs {g0}, linear_mode "
+                             f"{float(info['linear_mode'])} vs "
+                             f"{float(i0['linear_mode'])}")
+    return max_abs
+
+
+def _pool_bytes(entry) -> int:
+    """Device bytes held by a captured chain's two memory pools (the
+    graph's and its conditional bodies')."""
+    ids = {tuple(entry.graph.pool()), tuple(entry.pool)}
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) in ids)
+
+
+def _fused_one(name: str, settings: dict, x: torch.Tensor) -> dict:
+    """One input: master_graph (staged, counted), then master_graph_fused
+    from an empty cache (warm-up and capture: its seconds, its pools'
+    bytes, the launches counted at capture), FUSED_REPLAYS replays under
+    sync debug mode "error" held to the staged master, and the times of
+    both (CUDA events; host us a call)."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    s = MasterSettings(**settings)
+    chain._fused.clear()
+    _zero_counts()
+    want = chain.master_graph(x, SR, s)
+    staged = _read_counts()
+    _zero_counts()
+    t0 = time.perf_counter()
+    first = chain.master_graph_fused(x, SR, s)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    at_capture = _read_counts()
+    (entry,) = chain._fused[x.device].values()
+    pool = _pool_bytes(entry)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replays = [chain.master_graph_fused(x, SR, s)
+                   for _ in range(FUSED_REPLAYS)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    err = max(_fused_err(settings, r, want) for r in [first] + replays)
+    if name == "quality" and staged["cascade_scan"] != 3 or name in (
+            "compat", "compat_fallback", "compat_chunked",
+            "compat_chunked_fallback") and staged["cascade_scan"] != 7:
+        raise AssertionError(f"fused {name}: staged launches {staged}")
+    if (staged["gain_p1"] > 0) != (name in FALLBACK_INPUTS):
+        raise AssertionError(f"fused {name}: K3 {staged['gain_p1']} times "
+                             f"in the staged run")
+    row = {"capture_s": capture_s, "pool_bytes": pool, "max_abs_err": err,
+           "linear_mode": float(want[1].get("linear_mode", 1.0)),
+           "staged_launches": {k: v for k, v in staged.items() if v},
+           "launches_at_capture": {k: v for k, v in at_capture.items()
+                                   if v},
+           "replay_ms": _cuda_ms(lambda: chain.master_graph_fused(x, SR, s)),
+           "staged_ms": _cuda_ms(lambda: chain.master_graph(x, SR, s)),
+           "replay_host_us": _host_us(
+               lambda: chain.master_graph_fused(x, SR, s)),
+           "staged_host_us": _host_us(lambda: chain.master_graph(x, SR, s))}
+    print(f"fused {name}: capture {capture_s:.3f} s, pools "
+          f"{pool / 2 ** 20:.1f} MiB; replay vs master_graph max abs "
+          f"{err:.3e} ({1 + FUSED_REPLAYS} calls, the replays under sync "
+          f"debug mode error); replay {row['replay_ms']:.3f} ms vs staged "
+          f"{row['staged_ms']:.3f} ms, host {row['replay_host_us']:.1f} vs "
+          f"{row['staged_host_us']:.1f} us a call; staged launches "
+          + json.dumps(row["staged_launches"]))
+    return row
+
+
+def _fused_cross(inputs: list) -> dict:
+    """One graph, the card's decisions: the compat chain captured on the
+    compat input replays the steady (fallback), dynamic-loudnorm and
+    silent inputs, each held to master_graph on it."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    s = MasterSettings(**COMPAT)
+    xs = {n: x for n, st, x in inputs if st is COMPAT}
+    chain._fused.clear()
+    chain.master_graph_fused(xs["compat"], SR, s)
+    out = {}
+    for name in ("compat_fallback", "compat_dynamic", "compat_silent",
+                 "compat"):
+        want = chain.master_graph(xs[name], SR, s)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = chain.master_graph_fused(xs[name], SR, s)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[name] = _fused_err(COMPAT, got, want)
+    if len(chain._fused[xs["compat"].device]) != 1:
+        raise AssertionError("the compat inputs did not share one graph")
+    chain._fused.clear()
+    print("fused: one compat graph replays the fallback, dynamic and silent "
+          "inputs, max abs vs master_graph " + json.dumps(out))
+    return out
+
+
+def _profile_fused(tmp: str) -> dict:
+    """Kernel records per replay and per staged run, busy time and idle
+    share, from torch.profiler in a process of its own (one that ran no
+    plain gain walk: PERF.md section 7)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--fused-profile", tmp], capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"fused profile failed: {r.stderr[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    return json.loads(lines[-1])
+
+
+def fused_profile(tmp: str) -> int:
+    """``--fused-profile TMP``: for each phase-19 input (read from TMP), one
+    staged run and one replay under torch.profiler: the port's kernel
+    records by name (the replay's must equal the staged run's, graph_if's
+    setter apart), busy ms (every kernel) and the idle share of each
+    one's event time; prints one JSON line. No graph is dropped here: once
+    a captured graph has been destroyed in a process, torch.profiler
+    (torch 2.11, CUDA 12.8) has been seen to name and count the kernels of
+    later graphs' replays wrongly, while their outputs stay exact. Inputs
+    of one settings key replay one graph."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    inputs = _fused_inputs(tmp)
+    chain._FUSED_GRAPHS = len(inputs)
+    out = {}
+    for name, settings, x in inputs:
+        s = MasterSettings(**settings)
+        row = {}
+        for how, fn in (("staged", lambda: chain.master_graph(x, SR, s)),
+                        ("replay",
+                         lambda: chain.master_graph_fused(x, SR, s))):
+            ms = _cuda_ms(fn)
+            per_kernel = _profile(fn, 1)
+            busy = sum(t for t, _ in per_kernel.values())
+            row[how] = {"ms": ms, "busy_ms": busy,
+                        "idle_share": 1.0 - busy / ms,
+                        "records": {k: n for k, (_, n) in per_kernel.items()
+                                    if k.startswith(FUSED_KERNELS)}}
+        st, rp = row["staged"]["records"], row["replay"]["records"]
+        ifs = rp.pop("graph_if_set", 0)
+        if rp != st or not st:
+            raise AssertionError(f"fused {name}: kernel records a replay "
+                                 f"{rp} != a staged run {st}")
+        row["if_nodes_run"] = ifs
+        out[name] = row
+        print(f"fused {name}: replay busy {row['replay']['busy_ms']:.3f} of "
+              f"{row['replay']['ms']:.3f} ms (idle share "
+              f"{row['replay']['idle_share']:.3f}) vs staged busy "
+              f"{row['staged']['busy_ms']:.3f} of {row['staged']['ms']:.3f} "
+              f"ms ({row['staged']['idle_share']:.3f}); the port's kernel "
+              f"records equal, {sum(st.values())} a run; {ifs} IF setters")
+    print(json.dumps(out))
+    return 0
+
+
+def phase_fused(tmp: str) -> dict:
+    """Phase 19 (see the module docstring)."""
+    inputs = _fused_inputs(tmp)
+    rows = {name: _fused_one(name, settings, x)
+            for name, settings, x in inputs}
+    cross = _fused_cross(inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    prof = _profile_fused(tmp)
+    for name, row in rows.items():
+        row["profile"] = prof[name]
+    return {"inputs": rows, "one_graph_compat": cross}
+
+
 def sharded_times(root: str) -> int:
     """``--sharded-times [ROOT]``: each sharded master of phase 17 (the
     paths of SP_PATHS at the meshes of SP_MESHES, on phase 17's inputs)
@@ -4587,6 +4844,9 @@ def main() -> int:
         sharded = phase_sharded(tmp)
         sharded["phase_s"] = time.perf_counter() - t0
         last = phase_train_sharded_stacked(tmp)
+        t0 = time.perf_counter()
+        fused = phase_fused(tmp)
+        fused["phase_s"] = time.perf_counter() - t0
     train_sharded, stacked = last["train_sharded"], last["stacked"]
     sq, sc = stream["quality"], stream["compat"]
     paths = {"quality": main_run["counts"], "compat": compat["counts"],
@@ -4749,6 +5009,7 @@ def main() -> int:
     print(json.dumps({"train_sharded": train_sharded}))
     print(json.dumps({"stacked": {k: v for k, v in stacked.items()
                                   if k != "k5"}}))
+    print(json.dumps({"fused": fused}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -4762,6 +5023,8 @@ if __name__ == "__main__":
         sys.exit(streaming_profile())
     if sys.argv[1:2] == ["--fit-profile"]:
         sys.exit(fit_profile())
+    if sys.argv[1:2] == ["--fused-profile"]:
+        sys.exit(fused_profile(sys.argv[2]))
     if sys.argv[1:2] == ["--kernel-times"]:
         sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else
                               os.path.dirname(os.path.abspath(__file__))))

@@ -148,6 +148,19 @@ def test_silence_is_neg_inf():
     assert float(loudness.measure(_t(x), SR)["input_i"]) == -np.inf
 
 
+@pytest.mark.parametrize("kind", ["highpass", "lowpass"])
+@pytest.mark.parametrize("f0,q", [(30.0, 0.7071), (12000.0, 2.0)])
+def test_rbj_pass_designs_match_reference(kind, f0, q):
+    """The port's float64 RBJ high- and low-pass biquads equal ame_tpu's
+    (both numpy float64 on the host)."""
+    from ame_tpu.dsp import design as ref
+    from ame_tpu_torch.dsp import design
+    got = getattr(design, f"rbj_{kind}")(f0, SR, q)
+    want = getattr(ref, f"rbj_{kind}")(f0, SR, q)
+    assert got.shape == (1, 6) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # Windows and limiter
 # ---------------------------------------------------------------------------
@@ -157,6 +170,16 @@ def test_sliding_min_ahead_matches_reference(w):
     from ame_tpu.ops.window import sliding_min_ahead as ref
     x = np.random.default_rng(5).random(5000).astype(np.float32)
     _close(window.sliding_min_ahead(_t(x), w), ref(jnp.asarray(x), w), 1e-5)
+
+
+@pytest.mark.parametrize("w", [1, 220, 1000])
+def test_sliding_max_ahead_matches_reference(w):
+    from ame_tpu.ops.window import sliding_max_ahead as ref
+    x = np.random.default_rng(8).standard_normal((5000, 2)).astype(
+        np.float32)
+    got = window.sliding_max_ahead(_t(x), w)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        ref(jnp.asarray(x), w)))
 
 
 @pytest.mark.parametrize("w", [220, 2000])

@@ -1,7 +1,9 @@
 """The port's profiler (ame_tpu_torch.utils.profiler.profile_master and
 ``python -m ame_tpu_torch profile``) on the CPU: ame_tpu's report keys,
-ame_tpu's stage names in both modes, and a Chrome trace written by
-telemetry.profile_trace (tests/test_cli.py:106-128's contract)."""
+ame_tpu's stage names in both modes, cold start and steady state from the
+fused program and stages from the staged chain, and a Chrome trace
+written by telemetry.profile_trace (tests/test_cli.py:106-128's
+contract)."""
 
 import json
 import os
@@ -78,6 +80,30 @@ def test_profile_report_keys_match_reference(track):
     assert set(rep["stages_ms"]) == set(ref["stages_ms"])
     assert rep["n_samples"] == ref["n_samples"]
     assert rep["seconds"] == ref["seconds"]
+
+
+def test_profile_times_the_fused_program(track, monkeypatch):
+    """As ame_tpu's profiler: cold start and each steady run are one
+    master_graph_fused call, the stages come from the staged chain (a warm
+    call and runs // 2 timed ones), and the note says which is which."""
+    from ame_tpu_torch.graph import chain
+    from ame_tpu_torch.io import read_audio
+    calls = {"fused": 0, "staged": 0}
+    fused, staged = chain.master_graph_fused, chain.master_graph
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(chain, "master_graph_fused", count("fused", fused))
+    monkeypatch.setattr(chain, "master_graph", count("staged", staged))
+    x, _ = read_audio(track)
+    rep = profile_master(x, SR, {"bass_boost": 1.5}, runs=4, device="cpu")
+    assert calls == {"fused": 1 + 4, "staged": 1 + 2}
+    assert "fused program" in rep["stages_note"]
+    assert rep["cold_start_s"] > 0 and rep["steady_ms"] > 0
 
 
 def test_profile_master_defaults_to_the_card():
