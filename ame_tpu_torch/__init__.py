@@ -44,11 +44,18 @@ NVIDIA card (or on the CPU through the plain PyTorch versions):
     the real-FFmpeg golden harness (``io/avfilter.py``) and the mood CNN's
     evaluation corpora (``models/oof_corpus.py``, ``oof2_corpus.py``).
 
-The multi-device paths are still to be ported (ROADMAP.md).
+  * the multi-device paths (``parallel/``): time-sharded mastering
+    (``sp_master``, ``sp_compat``; ``api.master_file(...,
+    shard_time=True)``), the data x tensor-parallel mood-CNN step on
+    ``torch.distributed`` (``parallel/train.py``) and the channel-stacked
+    batch (``stacked.master_batch_stacked``).
 
-Entry points: ``ame_tpu_torch.api.master_file`` / ``master_array`` /
-``process_audio``, ``ame_tpu_torch.graph.chain.master_graph`` /
-``master_graph_fused``,
+``master_graph_fused`` may be called from any thread: each device's graphs
+sit behind a lock, and each graph replays on a stream of its own.
+
+Entry points: ``ame_tpu_torch.process_audio`` / ``master_file`` /
+``EQ_PRESETS`` (lazy, as ``ame_tpu``'s), ``ame_tpu_torch.api.master_array``,
+``ame_tpu_torch.graph.chain.master_graph`` / ``master_graph_fused``,
 ``ame_tpu_torch.analysis.musicologist.analyze_song`` / ``analyze_batch``,
 ``ame_tpu_torch.StreamingMaster`` / ``StreamingCompatMaster``,
 ``ame_tpu_torch.serve.server.make_server`` / ``run_server``,
@@ -60,11 +67,18 @@ Entry points: ``ame_tpu_torch.api.master_file`` / ``master_array`` /
 
 __version__ = "0.1.0"
 
-__all__ = ["StreamingMaster", "StreamingCompatMaster", "__version__"]
+__all__ = ["process_audio", "master_file", "StreamingMaster",
+           "StreamingCompatMaster", "EQ_PRESETS", "__version__"]
 
 
 def __getattr__(name):
     # lazy: importing the package builds nothing and pulls in no stage
+    if name in ("process_audio", "master_file"):
+        from ame_tpu_torch import api
+        return getattr(api, name)
+    if name == "EQ_PRESETS":
+        from ame_tpu_torch.presets import EQ_PRESETS
+        return EQ_PRESETS
     if name in ("StreamingMaster", "StreamingCompatMaster"):
         from ame_tpu_torch import streaming
         return getattr(streaming, name)

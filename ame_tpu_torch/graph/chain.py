@@ -33,6 +33,7 @@ eagerly (``master_graph``), the chain reads each decision on the host once.
 from __future__ import annotations
 
 import collections
+import threading
 import time
 
 import torch
@@ -42,7 +43,7 @@ from ame_tpu_torch import precision
 from ame_tpu_torch.config import MasterSettings
 from ame_tpu_torch.graph import multiband as mb
 from ame_tpu_torch.ops import eq, quantize, saturate, stereo
-from ame_tpu_torch.ops._branch import holding, warm_all_branches
+from ame_tpu_torch.ops._branch import holding, new_stream, warm_all_branches
 from ame_tpu_torch.ops.limiter import alimiter_compat, lookahead_limiter
 from ame_tpu_torch.ops.loudness import normalize_two_pass
 from ame_tpu_torch.ops.loudnorm import loudnorm_two_pass
@@ -111,7 +112,8 @@ def _stage_normalize(x, target, tp, lra, n_valid, sample_rate, requantize):
         y, info = loudnorm_two_pass(x, sample_rate, target, tp, lra,
                                     n_valid=n_valid)
         return quantize.int16_roundtrip(y), info
-    return normalize_two_pass(x, sample_rate, target, n_valid=n_valid)
+    return normalize_two_pass(x, sample_rate, target, target_tp_db=tp,
+                              target_lra=lra, n_valid=n_valid)
 
 
 def _stage_pre_quality(x, analog, bass, mid_cut, presence, treble,
@@ -272,39 +274,70 @@ def master_graph(x: torch.Tensor, sample_rate: float, settings,
 
 _FUSED_GRAPHS = 4        # captured chains kept per device, least recent out
 _fused: dict = {}        # device -> OrderedDict(key -> _Fused)
+_fused_locks: dict = {}  # device -> the lock its graphs sit behind
+_free_streams: dict = {}  # device -> replay streams of dropped entries
+                          # (graph_if.cu makes streams and frees none)
+_fused_guard = threading.RLock()  # guards the three dicts above
+
+
+def _device_graphs(device: torch.device):
+    """(lock, graphs) of ``device``: the lock guards its graphs' lookup,
+    capture, eviction and replay."""
+    with _fused_guard:
+        lock = _fused_locks.setdefault(device, threading.Lock())
+        return lock, _fused.setdefault(device, collections.OrderedDict())
+
+
+def _take_stream(device: torch.device):
+    with _fused_guard:
+        free = _free_streams.get(device)
+        if free:
+            return free.pop()
+    return new_stream(device)
 
 
 class _Fused:
     """One captured chain: its graph, the static input it reads, the static
-    outputs it writes, and what must outlive the capture (the params, the
-    cached device tables the kernels read, and the memory pool of its
-    conditional bodies: the caching allocator sends only the capturing
-    stream's own allocations to the graph's pool, so this thread's others,
-    the bodies', go to a second pool the entry releases when dropped)."""
+    outputs it writes, the stream of its own it is captured and replayed
+    on, the event of the last call's clones, and what must outlive the
+    capture (the params, the cached device tables the kernels read, and
+    the memory pool of its conditional bodies: the caching allocator
+    sends only the capturing stream's own allocations to the graph's
+    pool, so this thread's others, the bodies', go to a second pool the
+    entry releases when dropped).
+
+    Callers hold the device's lock (``_device_graphs``) around the
+    construction and every call."""
 
     def __init__(self, x, sample_rate, p, structure, n_valid):
         self.x = x.clone()
         self.keep = p
         self.device = x.device.index
         self.pool = None
+        self.stream = None
+        self.done = None         # the last call's clones, on its stream
+        self.clean = False
 
         def run():
             return _run(self.x, sample_rate, p, structure, n_valid)
 
         dev = x.device
         with torch.cuda.device(dev):
-            # warm-up: every branch once, eagerly, on a side stream, so that
-            # each table, library, kernel and workspace a branch can reach
-            # is ready before the capture (an upload inside it is a fault)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), warm_all_branches():
+            self.stream = _take_stream(dev)
+            # warm-up: every branch once, eagerly, so that each table,
+            # library, kernel and workspace a branch can reach is ready
+            # before the capture (an upload inside it is a fault)
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self.stream), warm_all_branches():
                 run()
-            torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             self.graph = torch.cuda.CUDAGraph()
             pool = torch.cuda.graph_pool_handle()
-            with holding() as self.tables, torch.cuda.graph(self.graph):
+            # thread_local: another thread's eager CUDA work (a host read,
+            # an allocation) neither fails this capture nor is refused
+            with holding() as self.tables, torch.cuda.graph(
+                    self.graph, stream=self.stream,
+                    capture_error_mode="thread_local"):
                 torch._C._cuda_beginAllocateCurrentThreadToPool(self.device,
                                                                 pool)
                 self.pool = pool
@@ -312,18 +345,44 @@ class _Fused:
                     self.y, self.info = run()
                 finally:
                     torch._C._cuda_endAllocateToPool(self.device, self.pool)
+        self.clean = True
 
     def __call__(self, x):
-        self.x.copy_(x)
-        self.graph.replay()
-        return self.y.clone(), {k: v.clone() for k, v in self.info.items()}
+        """Copy in and replay on the entry's stream, after the caller's
+        stream and after the last call's clones (``done``); clone out on
+        the caller's stream, after the replay. So one call's clones read
+        the static outputs before the next call's replay writes them,
+        whatever streams the two callers run on, and the clones are
+        ordinary allocations of the caller's stream."""
+        s = self.stream
+        caller = torch.cuda.current_stream(x.device)
+        s.wait_stream(caller)
+        if self.done is not None:
+            s.wait_event(self.done)
+        with torch.cuda.stream(s):
+            self.x.copy_(x)
+            self.graph.replay()
+        x.record_stream(s)
+        caller.wait_stream(s)
+        y = self.y.clone()
+        info = {k: v.clone() for k, v in self.info.items()}
+        self.done = caller.record_event()
+        return y, info
 
     def __del__(self):
+        if self.stream is not None:
+            self.stream.synchronize()
+        if self.done is not None:
+            self.done.synchronize()
         graph = getattr(self, "graph", None)
         if graph is not None:
             graph.reset()
         if self.pool is not None:
             torch._C._cuda_releasePool(self.device, self.pool)
+        if self.clean:
+            with _fused_guard:
+                _free_streams.setdefault(self.stream.device,
+                                         []).append(self.stream)
 
 
 def master_graph_fused(x: torch.Tensor, sample_rate: float, settings,
@@ -341,10 +400,16 @@ def master_graph_fused(x: torch.Tensor, sample_rate: float, settings,
     coefficients travel in its launch parameters), so a new settings value
     captures anew, where ``ame_tpu`` shares one compile across values. The
     first call warms every branch once, then captures. The last
-    ``_FUSED_GRAPHS`` graphs are kept per device; dropping one frees its
-    memory pool. A failed capture raises; the staged chain never runs in
-    its place on a card. On the CPU (CPU tensors only) the same chain runs
-    eagerly."""
+    ``_FUSED_GRAPHS`` graphs are kept per device; dropping one waits for
+    its stream and frees its memory pools. A failed capture raises; the
+    staged chain never runs in its place on a card. On the CPU (CPU
+    tensors only) the same chain runs eagerly.
+
+    Any thread may call it, on any stream: a lock per device orders the
+    lookup, the capture, the eviction and the replay, and each graph runs
+    on a stream of its own that waits for the caller's stream and for the
+    last call's clones; the caller's stream waits for the replay and
+    clones the outputs."""
     settings, structure = _structure(settings)
     if x.device.type == "cpu":
         return _run(x, sample_rate, _params(settings, structure, x.device),
@@ -354,18 +419,19 @@ def master_graph_fused(x: torch.Tensor, sample_rate: float, settings,
                          f"{x.device}")
     key = (settings, x.shape, n_valid, float(sample_rate),
            C.COMPAT_CHUNK_SECONDS, x.dtype)
-    graphs = _fused.setdefault(x.device, collections.OrderedDict())
-    entry = graphs.get(key)
-    if entry is None:
-        try:
-            entry = _Fused(x, sample_rate,
-                           _params(settings, structure, x.device), structure,
-                           n_valid)
-        except Exception as e:
-            raise RuntimeError(f"master_graph_fused: capturing the chain "
-                               f"failed on {x.device}: {e}") from e
-        if len(graphs) >= _FUSED_GRAPHS:
-            graphs.popitem(last=False)
-        graphs[key] = entry
-    graphs.move_to_end(key)
-    return entry(x)
+    lock, graphs = _device_graphs(x.device)
+    with lock:
+        entry = graphs.get(key)
+        if entry is None:
+            try:
+                entry = _Fused(x, sample_rate,
+                               _params(settings, structure, x.device),
+                               structure, n_valid)
+            except Exception as e:
+                raise RuntimeError(f"master_graph_fused: capturing the "
+                                   f"chain failed on {x.device}: {e}") from e
+            if len(graphs) >= _FUSED_GRAPHS:
+                graphs.popitem(last=False)
+            graphs[key] = entry
+        graphs.move_to_end(key)
+        return entry(x)

@@ -27,8 +27,9 @@ captured, the device tables that kernel wrappers take from caches outside
 the graph (``hold``), so that the graph can keep them alive after the
 caches drop them. Both, and the nesting depth of IF bodies, are state of
 the calling thread: a server's workers mastering eagerly are not touched
-by a capture on another thread. One thread at a time captures (the body
-streams are shared).
+by a capture on another thread. One thread at a time captures on a device,
+since the body streams of a device are shared: ``graph.chain``'s lock per
+device enforces it.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ class _State(threading.local):
 
 _state = _State()
 _body_streams: dict = {}     # (device, depth) -> the stream bodies run on
+_streams_lock = threading.Lock()
 
 
 def _capturing(pred: torch.Tensor) -> bool:
@@ -77,20 +79,26 @@ def _check(lib, what: str, err: int) -> None:
                            f"({lib.graph_if_error(err).decode()})")
 
 
+def new_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    """A non-blocking stream of the caller's own on ``device``, created by
+    ``graph_if_stream``: never one of torch's pooled streams, which
+    ``torch.cuda.Stream()`` hands out again to any thread that asks."""
+    lib = _lib()
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(device):
+        _check(lib, "graph_if_stream",
+               lib.graph_if_stream(ctypes.byref(handle)))
+    return torch.cuda.ExternalStream(handle.value, device=device)
+
+
 def _body_stream(device: torch.device) -> torch.cuda.ExternalStream:
-    """The stream IF bodies at the current depth run on: created once by
-    ``graph_if_stream``, never one of torch's pooled streams (a capture's
-    own stream is one of those, and a body cannot be captured from it)."""
+    """The stream IF bodies at the current depth run on, created once (a
+    capture's own stream cannot be a body's)."""
     key = (device, _state.depth)
-    if key not in _body_streams:
-        lib = _lib()
-        handle = ctypes.c_void_p()
-        with torch.cuda.device(device):
-            _check(lib, "graph_if_stream",
-                   lib.graph_if_stream(ctypes.byref(handle)))
-        _body_streams[key] = torch.cuda.ExternalStream(handle.value,
-                                                       device=device)
-    return _body_streams[key]
+    with _streams_lock:
+        if key not in _body_streams:
+            _body_streams[key] = new_stream(device)
+        return _body_streams[key]
 
 
 @contextlib.contextmanager

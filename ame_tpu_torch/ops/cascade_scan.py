@@ -52,6 +52,7 @@ import torch
 
 from ame_tpu_torch.ops import _build
 from ame_tpu_torch.ops._branch import hold
+from ame_tpu_torch.ops._count import bump
 from ame_tpu_torch.ops.scan_iir import _compose_sections, _section_forms
 
 _SUB = 64           # samples per thread (SUB in cascade_scan.cu)
@@ -220,10 +221,7 @@ def sosfilt_cuda(sos, x: torch.Tensor, zi: torch.Tensor | None = None,
     if err != 0:
         raise RuntimeError(f"cascade_scan launch failed: CUDA error "
                            f"{err} ({lib.cascade_scan_error(err).decode()})")
-    if reverse:
-        sosfilt_cuda.reverse_launches += 1
-    else:
-        sosfilt_cuda.launches += 1
+    bump(sosfilt_cuda, "reverse_launches" if reverse else "launches")
     return y, zf
 
 

@@ -95,21 +95,28 @@ def _alimiter_depth(dep: torch.Tensor, pieces_r, pieces_a, rel_carry=None):
 
 def alimiter_compat(x: torch.Tensor, sample_rate: float, limit: float = 0.98,
                     attack_ms: float = 5.0, release_ms: float = 50.0,
-                    return_gain: bool = False):
+                    level_in: float = 1.0, level_out: float = 1.0,
+                    auto_level: bool = True, return_gain: bool = False):
     """The reference's final stage with ffmpeg-contract ramps
     (``alimiter=level_in=1:level_out=1:limit=0.98:attack=5:release=50``,
     engine:223): linear attack/release envelope, zero-latency alignment,
-    and ffmpeg's default auto-level 1/limit output scale (masters peak at
-    ~1.0, not 0.98). Levels in and out are ffmpeg's defaults, 1."""
+    and ffmpeg's auto-level output scale ``level_out / limit`` (at the
+    defaults masters peak at ~1.0, not 0.98; ``auto_level=False`` scales by
+    ``level_out`` alone). The input is scaled by ``level_in`` first and the
+    depths come from its peaks. The levels are float32, as in ``ame_tpu``."""
     A = max(int(round(attack_ms * sample_rate / 1000.0)), 1)
     R = max(release_ms * sample_rate / 1000.0, 1.0)
+    if level_in != 1.0:
+        x = x * float(np.float32(level_in))
     peak = torch.amax(x.abs(), dim=1)
     dep = torch.clamp(1.0 - torch.full((), limit, dtype=peak.dtype,
                                        device=peak.device)
                       / torch.clamp(peak, min=1e-9), min=0.0)
     d, _ = _alimiter_depth(dep, _wedge_pieces(R), _wedge_pieces(float(A)))
     gain = 1.0 - d
-    y = x * (gain * float(np.float32(1.0) / np.float32(limit)))[:, None]
+    scale = (np.float32(level_out) / np.float32(limit) if auto_level
+             else np.float32(level_out))
+    y = x * (gain * float(scale))[:, None]
     return (y, gain) if return_gain else y
 
 

@@ -89,11 +89,13 @@ def _integrated_gate(p_m: torch.Tensor, v_m: torch.Tensor):
     return integrated, rel_thresh
 
 
-def _lra_gate(p_s: torch.Tensor, v_s: torch.Tensor) -> torch.Tensor:
+def _lra_gate(p_s: torch.Tensor, v_s: torch.Tensor,
+              dtype=None) -> torch.Tensor:
     """LRA from 3 s block powers: -20 LU relative gate, P10..P95 at
-    round-nearest order statistics of the gated blocks."""
+    round-nearest order statistics of the gated blocks (0 of ``dtype``,
+    default the powers', where there is no block)."""
     if p_s.shape[0] == 0:
-        return p_s.new_zeros(())
+        return p_s.new_zeros((), dtype=dtype)
     l_s = _power_to_lufs(p_s)
     abs_s = (l_s > -70.0) & v_s
     rel_s = _power_to_lufs(_masked_mean(p_s, abs_s)) - 20.0
@@ -127,10 +129,13 @@ def _measure(x: torch.Tensor, sample_rate: float, n_valid: int | None = None,
 
 
 def gated_stats_from_hops(hop_sums: torch.Tensor, hop: int,
-                          n_valid: int | None = None):
+                          n_valid: int | None = None, dtype=None):
     """(integrated, lra, rel_thresh) from 100 ms hop ENERGIES [H] (K-weighted
     squares summed over channels) — the hop-domain twin of ``_measure``.
-    ``n_valid`` masks gating blocks that end past the true track end."""
+    ``n_valid`` masks gating blocks that end past the true track end.
+    ``dtype`` is the LRA's where it has no gated block (0; default the
+    hops' dtype), as in ``ame_tpu``."""
+    dt = dtype or hop_sums.dtype
     H = hop_sums.shape[0]
     nv = H * hop if n_valid is None else int(n_valid)
     dev = hop_sums.device
@@ -147,9 +152,9 @@ def gated_stats_from_hops(hop_sums: torch.Tensor, hop: int,
         nb_s = n_sec - 3 + 1
         p_s = (csum_s[3:3 + nb_s] - csum_s[:nb_s]) / (hop * hps * 3)
         v_s = (torch.arange(nb_s, device=dev) + 3) * (hop * hps) <= nv
-        lra = _lra_gate(p_s, v_s)
+        lra = _lra_gate(p_s, v_s, dt)
     else:
-        lra = hop_sums.new_zeros(())
+        lra = torch.zeros((), dtype=dt, device=dev)
     return integrated, lra, rel_thresh
 
 
@@ -258,11 +263,16 @@ def measure(x: torch.Tensor, sample_rate: float,
 
 def normalize_two_pass(x: torch.Tensor, sample_rate: float,
                        target_lufs: float = -14.0,
+                       target_tp_db: float = -1.5,
+                       target_lra: float = 11.0,
+                       protect_tp: bool = False,
                        n_valid: int | None = None):
     """Measure, then apply one linear gain to reach ``target_lufs`` — the
-    quality chain's normalizer (the reference's ``protect_tp`` cap, which no
-    caller sets, is not ported). Silent input (measured -inf) passes through
-    unchanged (quirk Q9).
+    quality chain's normalizer. Silent input (measured -inf) passes through
+    unchanged (quirk Q9). ``protect_tp`` caps the gain at the true-peak
+    headroom ``target_tp_db - input_tp``. ``target_lra`` is taken for the
+    reference's signature and, as there, sets nothing: the clean gain has no
+    LRA target (ffmpeg's pass-2 semantics are ``ops.loudnorm``'s).
 
     Returns (y, info dict of 0-d tensors)."""
     if x.ndim == 1:
@@ -270,6 +280,8 @@ def normalize_two_pass(x: torch.Tensor, sample_rate: float,
     stats = measure(x, sample_rate, n_valid)
     silent = ~torch.isfinite(stats["input_i"])
     offset = target_lufs - stats["input_i"]
+    if protect_tp:
+        offset = torch.minimum(offset, target_tp_db - stats["input_tp"])
     gain_db = torch.where(silent, torch.zeros_like(offset), offset)
     y = x * 10.0 ** (gain_db / 20.0)
     return y, {**stats, "gain_db": gain_db,

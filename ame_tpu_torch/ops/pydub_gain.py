@@ -59,6 +59,7 @@ import torch
 
 from ame_tpu_torch.ops import _build
 from ame_tpu_torch.ops._branch import device_if, device_if_else
+from ame_tpu_torch.ops._count import bump
 
 _K = 32          # start-state stride (samples per group) of the two-pass
 _TB = 4096       # pass-1 walk block of the reference (sets _pad_block)
@@ -192,9 +193,9 @@ def gain_p1_cuda(m: torch.Tensor, resets: torch.Tensor | None,
                 None if resets is None else resets.data_ptr(),
                 init.data_ptr(), starts.data_ptr(), n, G, stage, stages,
                 inv_a, inv_r)
-    gain_p1_cuda.launches += 1
+    bump(gain_p1_cuda)
     if resets is not None:
-        gain_p1_cuda.reset_launches += 1
+        bump(gain_p1_cuda, "reset_launches")
     return starts
 
 
@@ -229,7 +230,7 @@ def gain_p2_cuda(m: torch.Tensor, starts: torch.Tensor, inv_a: float,
         _launch("gain_p2_f32", _lib().gain_p2_f32, m.data_ptr(),
                 starts.data_ptr(), att.data_ptr(), n, G, _p2_tile(), inv_a,
                 inv_r)
-    gain_p2_cuda.launches += 1
+    bump(gain_p2_cuda)
     return att
 
 
@@ -287,9 +288,9 @@ def gain_jacobi_cuda(m_t: torch.Tensor, carry: torch.Tensor, inv_a: float,
                 None if att_t is None else att_t.data_ptr(),
                 None if resets is None else resets.data_ptr(), seg_len,
                 lanes, S, inv_a, inv_r)
-    gain_jacobi_cuda.launches += 1
+    bump(gain_jacobi_cuda)
     if resets is not None:
-        gain_jacobi_cuda.reset_launches += 1
+        bump(gain_jacobi_cuda, "reset_launches")
     return co, att_t
 
 

@@ -349,18 +349,25 @@ def _sosfilt(sos, sos64: np.ndarray, x: torch.Tensor, zi, max_sections: int):
     raise ValueError(f"sosfilt: unsupported device {x.device}")
 
 
-def biquad_scan(x: torch.Tensor, coeffs, zi=None):
-    """One biquad along axis 0: a k = 1 ``sosfilt``.
+def biquad_scan(x: torch.Tensor, coeffs, zi=None, axis: int = 0):
+    """One biquad along ``axis``: a k = 1 ``sosfilt``.
 
-    coeffs: host [6] (b0, b1, b2, a0, a1, a2), a0 == 1. x: [N, C]. zi:
-    scipy lfilter layout [C, 2], or None. Returns (y [N, C], zf [C, 2])."""
+    coeffs: host [6] (b0, b1, b2, a0, a1, a2), a0 == 1. zi: scipy lfilter
+    layout, x's shape without ``axis`` + (2,), or None. Returns (y, zf):
+    y of x's shape, zf of zi's. ``axis`` is moved to 0 and back; the rest
+    of x's axes are the cascade's columns."""
+    xt = x.movedim(axis, 0)
+    batch = xt.shape[1:]
+    cols = xt.reshape(xt.shape[0], -1)
     sos = np.asarray(coeffs, np.float64).reshape(1, 6)
-    y, zf = sosfilt(sos, x, None if zi is None else zi[None])
-    return y, zf[0]
+    y, zf = sosfilt(sos, cols,
+                    None if zi is None else zi.reshape(1, -1, 2))
+    return (y.reshape(xt.shape).movedim(0, axis),
+            zf[0].reshape(batch + (2,)))
 
 
-def lfilter_scan(b, a, x: torch.Tensor) -> torch.Tensor:
-    """scipy ``lfilter(b, a, x)`` along axis 0 for order <= 2 transfer
+def lfilter_scan(b, a, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """scipy ``lfilter(b, a, x)`` along ``axis`` for order <= 2 transfer
     functions (the reference's ba-form calls are order 2,
     audio_mastering_engine.py:285): one ``biquad_scan``."""
     b = np.asarray(b, np.float64)
@@ -371,20 +378,21 @@ def lfilter_scan(b, a, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError("lfilter_scan supports order <= 2; use SOS")
     coeffs = np.concatenate([np.pad(b, (0, 3 - len(b))),
                              np.pad(a, (0, 3 - len(a)))])
-    return biquad_scan(x, coeffs)[0]
+    return biquad_scan(x, coeffs, axis=axis)[0]
 
 
-def zero_input_response(sos, zi: torch.Tensor, n: int) -> torch.Tensor:
-    """y[0 .. n-1] of the cascade for ZERO input from the scipy-layout
-    state ``zi`` [k, C, 2]: the superposition term that turns a zero-state
-    result into the result from ``zi`` (``parallel/sequence.py`` adds it to
-    each shard's zero-state output). The cascade run over zeros from zi,
-    on zi's device: the kernel with a carried zi on the card, the tile-conv
-    on the CPU. Host coefficients only."""
-    if isinstance(sos, torch.Tensor):
+def zero_input_response(sos_np, zi: torch.Tensor, n: int) -> torch.Tensor:
+    """y[0 .. n-1] of the cascade ``sos_np`` for ZERO input from the
+    scipy-layout state ``zi`` [k, C, 2]: the superposition term that turns
+    a zero-state result into the result from ``zi``
+    (``parallel/sequence.py`` adds it to each shard's zero-state output).
+    The cascade run over zeros from zi, on zi's device: the kernel with a
+    carried zi on the card, the tile-conv on the CPU. Host coefficients
+    only."""
+    if isinstance(sos_np, torch.Tensor):
         raise NotImplementedError("zero_input_response takes host "
                                   "coefficients")
-    return sosfilt(sos, zi.new_zeros((n, zi.shape[1])), zi)[0]
+    return sosfilt(sos_np, zi.new_zeros((n, zi.shape[1])), zi)[0]
 
 
 def sosfilt_chunked(sos, x: torch.Tensor, chunk_len: int) -> torch.Tensor:

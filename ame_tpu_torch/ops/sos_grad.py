@@ -33,6 +33,7 @@ import functools
 import torch
 
 from ame_tpu_torch.ops import _build
+from ame_tpu_torch.ops._count import bump
 
 MAX_C = 64                       # csrc/sos_grad.cu's MAX_C
 
@@ -115,8 +116,8 @@ def sos_grad_cuda(g: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sos_grad launch failed: CUDA error {err} "
                            f"({lib.sos_grad_error(err).decode()})")
-    sos_grad_cuda.launches += 1
-    sos_grad_cuda.vector_launches += vector
+    bump(sos_grad_cuda)
+    bump(sos_grad_cuda, "vector_launches", int(vector))
     return out
 
 

@@ -29,6 +29,7 @@ import torch
 
 from ame_tpu_torch.ops import _build
 from ame_tpu_torch.ops._branch import hold
+from ame_tpu_torch.ops._count import bump
 from ame_tpu_torch.ops import window as W
 
 _SUB = 32            # samples per walker thread (SUB in wedge_env.cu)
@@ -141,7 +142,7 @@ def wedge_env_cuda(dep: torch.Tensor, pieces, reverse: bool) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"wedge_env_f32 launch failed: CUDA error {err} "
                            f"({lib.wedge_env_error(err).decode()})")
-    wedge_env_cuda.launches += 1
+    bump(wedge_env_cuda)
     return env
 
 

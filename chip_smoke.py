@@ -171,11 +171,12 @@ failure raises and the script exits non-zero without the final line:
      least 1, K3 / K4 never, within 1 LSB of master_file's; (d) /measure
      within 0.01 of loudnorm_pass1 on the card; (e) a second server with 2
      workers, 4 jobs at once (2 quality, 2 compat): all done, each within 1
-     LSB of its one-at-a-time counterpart; (f) python -m ame_tpu_torch
+     LSB of its one-at-a-time counterpart, and the burst's launches the
+     sum of those four jobs' one at a time; (f) python -m ame_tpu_torch
      master --mp3 / measure / analyze / automaster --steps 3 in
      subprocesses on the card, started together: the info JSON and -14
      LUFS, the pass-1 keys, the brief's keys, a finite loss. The counts
-     are held in (a)-(c) only (plain attributes, not thread-safe). Where
+     are held in (a)-(c) and (e) (atomic: ops/_count.bump). Where
      libmp3lame or libmpg123 is absent the MP3 checks are left out and
      "mp3" says "unavailable: ..."; latencies from the PUT's end to done,
      the host parts (decode, art, MP3 encode) timed alone;
@@ -274,7 +275,17 @@ failure raises and the script exits non-zero without the final line:
      TMP``), each input's kernel records a replay against a staged run's
      under torch.profiler (the port's kernels' records must be equal: the
      same K2 sweeps, K3 / K4 only where the staged engine fell back),
-     busy ms and idle share;
+     busy ms and idle share; then the fused chain from several threads
+     (every output bit-equal to master_graph on its input, info too):
+     (a) two threads, each on a stream of its own, replay one compat key
+     FUSED_THREAD_REPLAYS times each on two inputs (the compat and the
+     dynamic-loudnorm one), interleaved; (b) one thread captures two new
+     keys (compat_chunked, quality_mb) while another masters eagerly with
+     master_graph on the default stream (quality and compat in turn)
+     until the captures are done; (c) two threads capture and replay
+     FUSED_EVICT_KEYS compat keys (LUFS targets) in opposite orders, more
+     than _FUSED_GRAPHS, so that graphs are evicted while the other
+     thread replays;
  20. the run's seconds, a {"chains": ...} line, a {"kernels": [...]} line,
      a {"musicologist": ...} line, a {"streaming": ...} line, a {"fit":
      ...} line, a {"train": ...} line, a {"serve": ...} line, a
@@ -302,7 +313,9 @@ csrc/sos_grad.cu and this checkout's under each of SG_VARIANTS' defines
 at [2^23 + 1234, 2], with their registers and SASS opcode counts.
 ``python3 chip_smoke.py --sharded-times [ROOT]`` times phase 17's sharded
 masters (each path at D = 1 and 4, twice, with its launches) of the
-ame_tpu_torch package under ROOT, in the same way.
+ame_tpu_torch package under ROOT, in the same way; ``--fused-times
+[ROOT]`` its master_graph_fused replays (quality and compat: device ms
+and host us a call, twice each).
 
 Every kernel's launch count is set to 0 just before each main path and read
 just after it. Times are medians of 3 warm runs, taken with
@@ -3218,8 +3231,8 @@ def phase_serve(tmp: str, device_chain_ms: float) -> dict:
     and procedural art; a quality job without them; (b) an MP3 upload the
     port encoded, and a FLAC upload; (c) a compat multiband job; (d)
     /measure; (e) 4 jobs at once on 2 workers; (f) the CLI in
-    subprocesses. Launches are held in (a)-(c) only: the counters are plain
-    attributes, not thread-safe."""
+    subprocesses. Launches are held in (a)-(c) and, summed over its jobs,
+    in (e) (the counters are atomic)."""
     from ame_tpu_torch.api import export_mp3_sidecar, master_file
     from ame_tpu_torch.creative import art, procedural
     from ame_tpu_torch.io import av, codecs, force_stereo, read_audio
@@ -3330,10 +3343,20 @@ def phase_serve(tmp: str, device_chain_ms: float) -> dict:
             srcs = [src, src, compat_src, compat_src]
             sets = [SERVE_QUALITY, SERVE_QUALITY, SERVE_COMPAT, SERVE_COMPAT]
             uris = [_upload(base, s)[0] for s in srcs]
+            _zero_counts()
             t0 = time.perf_counter()
             jobs = [_start(base, u, s) for u, s in zip(uris, sets)]
             sts = [_wait(base, *j) for j in jobs]
             burst_s = max(t for _, t in sts) - t0
+            # the counters are atomic: the burst's launches are the sum of
+            # its jobs' launches one at a time
+            burst_counts = _read_counts()
+            want_counts = {k: 2 * a2["counts"][k] + 2 * cc[k]
+                           for k in burst_counts}
+            if burst_counts != want_counts:
+                raise AssertionError(f"burst launches {burst_counts} != "
+                                     f"the jobs' one at a time "
+                                     f"{want_counts}")
             burst_lsb = []
             for (name, _), (st, _), one in zip(jobs, sts, [a2, a2, c, c]):
                 _check_job(store, name, st, "burst")
@@ -3387,7 +3410,8 @@ def phase_serve(tmp: str, device_chain_ms: float) -> dict:
         "lufs": {"quality": a_i, "flac": uploads["flac"]["lufs"]},
         "mp3_len": mp3_len, "n": n, "measure_max_err": measure_err,
         "burst": {"jobs": len(jobs), "workers": 2, "wall_s": burst_s,
-                  "jobs_per_s": len(jobs) / burst_s},
+                  "jobs_per_s": len(jobs) / burst_s,
+                  "launches": {k: v for k, v in burst_counts.items() if v}},
         "cli_s": {"master": m_s, "measure": me_s, "analyze": an_s,
                   "automaster": au_s},
         "cli": {"lufs": cli_i, "mp3": cli_mp3, "loss": fitted["loss"],
@@ -4470,6 +4494,159 @@ def _fused_cross(inputs: list) -> dict:
     return out
 
 
+FUSED_THREAD_REPLAYS = 20
+FUSED_EVICT_KEYS = 6
+FUSED_THREAD_S = 300           # a thread check's bound
+
+
+def _bit_equal(got, want) -> bool:
+    """A fused master and its info equal master_graph's bit for bit (NaN
+    where NaN)."""
+    (y, info), (y0, i0) = got, want
+    return (torch.equal(y, y0) and set(info) == set(i0) and all(
+        torch.equal(info[k], i0[k])
+        or bool(torch.isnan(info[k]).all() and torch.isnan(i0[k]).all())
+        for k in i0))
+
+
+def _in_threads(*fns) -> list:
+    """Run each fn on a thread of its own, started together; their
+    results, or an AssertionError naming the first that raised or the
+    threads still running after FUSED_THREAD_S."""
+    barrier = threading.Barrier(len(fns))
+    results, errors = [None] * len(fns), []
+
+    def body(i, fn):
+        try:
+            barrier.wait(timeout=FUSED_THREAD_S)
+            results[i] = fn()
+        except Exception as e:              # reported below
+            errors.append(f"thread {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=body, args=(i, fn), daemon=True)
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(FUSED_THREAD_S)
+    errors += [f"thread {i}: still running after {FUSED_THREAD_S} s"
+               for i, t in enumerate(threads) if t.is_alive()]
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return results
+
+
+def _fused_threads(inputs: list) -> dict:
+    """Phase 19 (a)-(c): master_graph_fused from several threads at once,
+    every output held bit for bit to master_graph on its input."""
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    xs = {n: x for n, _, x in inputs}
+    dev = xs["compat"].device
+    order = []                    # (thread, call), in the order they ended
+
+    # (a) two threads, a stream each, one key, two inputs, interleaved
+    s = MasterSettings(**COMPAT)
+    chain._fused.clear()
+    pair = [xs["compat"], xs["compat_dynamic"]]
+    wants = [chain.master_graph(x, SR, s) for x in pair]
+    chain.master_graph_fused(pair[0], SR, s)          # the capture
+
+    def replayer(i):
+        stream = torch.cuda.Stream(dev)
+        outs = []
+        with torch.cuda.stream(stream):
+            for j in range(FUSED_THREAD_REPLAYS):
+                outs.append(chain.master_graph_fused(pair[i], SR, s))
+                order.append(i)
+        stream.synchronize()
+        return [_bit_equal(o, wants[i]) for o in outs]
+
+    t0 = time.perf_counter()
+    oks = _in_threads(lambda: replayer(0), lambda: replayer(1))
+    a_s = time.perf_counter() - t0
+    switches = sum(a != b for a, b in zip(order, order[1:]))
+    if not all(all(ok) for ok in oks) or len(chain._fused[dev]) != 1:
+        raise AssertionError(f"fused (a): bit-equal {oks}, graphs "
+                             f"{len(chain._fused[dev])}")
+    out = {"a": {"replays": 2 * FUSED_THREAD_REPLAYS, "switches": switches,
+                 "wall_s": a_s}}
+    del wants
+
+    # (b) captures on one thread, eager masters on another
+    chain._fused.clear()
+    eager = [(MasterSettings(**FLAGSHIP), xs["quality"]),
+             (MasterSettings(**COMPAT), xs["compat"])]
+    eager_want = [chain.master_graph(x, SR, st) for st, x in eager]
+    caps = [(MasterSettings(**COMPAT_CHUNKED), xs["compat_chunked"]),
+            (MasterSettings(**QUALITY_MB), xs["quality_mb"])]
+    cap_want = [chain.master_graph(x, SR, st) for st, x in caps]
+    torch.cuda.synchronize()
+    done = threading.Event()
+
+    def capturer():
+        try:
+            return [_bit_equal(chain.master_graph_fused(x, SR, st), w)
+                    for (st, x), w in zip(caps, cap_want)]
+        finally:
+            done.set()
+
+    def eager_masters():
+        oks = []
+        while not done.is_set() or len(oks) < 4:
+            i = len(oks) % 2
+            st, x = eager[i]
+            oks.append(_bit_equal(chain.master_graph(x, SR, st),
+                                  eager_want[i]))
+        return oks
+
+    cap_ok, eager_ok = _in_threads(capturer, eager_masters)
+    if not all(cap_ok) or not all(eager_ok):
+        raise AssertionError(f"fused (b): captures {cap_ok}, eager "
+                             f"masters {eager_ok}")
+    out["b"] = {"captures": len(caps), "eager_masters": len(eager_ok)}
+    del eager_want, cap_want
+
+    # (c) more keys than _FUSED_GRAPHS from two threads: evictions while
+    # the other thread replays
+    chain._fused.clear()
+    keys = [MasterSettings(**dict(COMPAT, lufs=-14.0 - k))
+            for k in range(FUSED_EVICT_KEYS)]
+    x = xs["compat"]
+    key_want = [chain.master_graph(x, SR, st) for st in keys]
+    captures = []
+    fused_cls = chain._Fused
+
+    class Counted(fused_cls):
+        def __init__(self, *args):
+            super().__init__(*args)
+            captures.append(1)
+
+    def cycler(ks):
+        return [_bit_equal(chain.master_graph_fused(x, SR, keys[k]),
+                           key_want[k]) for k in ks for _ in range(2)]
+
+    ks = list(range(FUSED_EVICT_KEYS))
+    chain._Fused = Counted
+    try:
+        c_ok = _in_threads(lambda: cycler(ks), lambda: cycler(ks[::-1]))
+    finally:
+        chain._Fused = fused_cls
+    kept = len(chain._fused[dev])
+    evicted = len(captures) - kept
+    if (not all(all(ok) for ok in c_ok) or kept > chain._FUSED_GRAPHS
+            or evicted < FUSED_EVICT_KEYS - chain._FUSED_GRAPHS):
+        raise AssertionError(f"fused (c): bit-equal {c_ok}, "
+                             f"{len(captures)} captures, {kept} kept")
+    chain._fused.clear()
+    out["c"] = {"keys": FUSED_EVICT_KEYS, "captures": len(captures),
+                "evicted": evicted, "calls": sum(len(ok) for ok in c_ok)}
+    print("fused threads: (a) " + json.dumps(out["a"]) + "; (b) "
+          + json.dumps(out["b"]) + "; (c) " + json.dumps(out["c"])
+          + "; every output bit-equal to master_graph")
+    return out
+
+
 def _profile_fused(tmp: str) -> dict:
     """Kernel records per replay and per staged run, busy time and idle
     share, from torch.profiler in a process of its own (one that ran no
@@ -4535,12 +4712,13 @@ def phase_fused(tmp: str) -> dict:
     rows = {name: _fused_one(name, settings, x)
             for name, settings, x in inputs}
     cross = _fused_cross(inputs)
+    threads = _fused_threads(inputs)
     del inputs
     torch.cuda.empty_cache()
     prof = _profile_fused(tmp)
     for name, row in rows.items():
         row["profile"] = prof[name]
-    return {"inputs": rows, "one_graph_compat": cross}
+    return {"inputs": rows, "one_graph_compat": cross, "threads": threads}
 
 
 def sharded_times(root: str) -> int:
@@ -4573,6 +4751,41 @@ def sharded_times(root: str) -> int:
                                    "device_ms": [_cuda_ms(run),
                                                  _cuda_ms(run)]}
     print(json.dumps({"sharded_times": out}))
+    return 0
+
+
+def fused_times(root: str) -> int:
+    """``--fused-times [ROOT]``: master_graph_fused of the ame_tpu_torch
+    package found under ROOT on a quality input (0.1 N(0,1), seed 0) and
+    the compat main path's input at N_MAIN, made here: a replay checked
+    equal to master_graph, then its device ms (``_cuda_ms``) and host us a
+    call (``_host_us``: KERNEL_CALLS calls in a row), each twice. Prints
+    one {"fused_times": ...} line."""
+    sys.path.insert(0, os.path.abspath(root))
+    import ame_tpu_torch
+    from ame_tpu_torch.config import MasterSettings
+    from ame_tpu_torch.graph import chain
+    from ame_tpu_torch.ops.quantize import int16_roundtrip
+    phase_device()
+    rng = np.random.default_rng(0)
+    xq = torch.from_numpy((0.1 * rng.standard_normal((N_MAIN, 2))).astype(
+        np.float32)).cuda()
+    xc = int16_roundtrip(torch.from_numpy(
+        _compat_input(N_MAIN).astype(np.float32)).cuda())
+    out = {"package": os.path.dirname(ame_tpu_torch.__file__)}
+    for name, settings, x in (("quality", FLAGSHIP, xq),
+                              ("compat", COMPAT, xc)):
+        s = MasterSettings(**settings)
+
+        def replay():
+            return chain.master_graph_fused(x, SR, s)
+        if not torch.equal(replay()[0], chain.master_graph(x, SR, s)[0]):
+            raise AssertionError(f"fused times {name}: a replay differs "
+                                 f"from master_graph")
+        out[name] = {"replay_ms": [_cuda_ms(replay), _cuda_ms(replay)],
+                     "replay_host_us": [_host_us(replay), _host_us(replay)]}
+        chain._fused.clear()
+    print(json.dumps({"fused_times": out}))
     return 0
 
 
@@ -5033,4 +5246,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-times"]:
         sys.exit(sharded_times(sys.argv[2] if len(sys.argv) > 2 else
                                os.path.dirname(os.path.abspath(__file__))))
+    if sys.argv[1:2] == ["--fused-times"]:
+        sys.exit(fused_times(sys.argv[2] if len(sys.argv) > 2 else
+                             os.path.dirname(os.path.abspath(__file__))))
     sys.exit(main())
