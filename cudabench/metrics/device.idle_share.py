@@ -1,0 +1,9 @@
+"""Share of the profiled part of the window in which the device ran
+nothing: 100 * (1 - busy / window)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
