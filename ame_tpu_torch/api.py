@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ame_tpu_torch.config import COMPAT_CHUNK_SECONDS, MasterSettings
+from ame_tpu_torch.utils.telemetry import log_memory_usage, stage_timer
 
 log = logging.getLogger("ame_tpu_torch")
 
@@ -71,13 +72,20 @@ def master_file(input_file: str, output_file: str,
 
     Returns an info dict: output path, sample_rate, n_samples and the
     loudness stats (when normalization ran)."""
+    with stage_timer("api.master"):
+        return _master_file(input_file, output_file, settings,
+                            status_callback, progress_callback, device,
+                            shard_time)
+
+
+def _master_file(input_file, output_file, settings, status_callback,
+                 progress_callback, device, shard_time) -> dict:
     from ame_tpu_torch.io import read_audio
 
     status_callback("Loading audio into device memory...")
     audio, sr = read_audio(input_file, prefer_int16=True)
-    return master_array(audio, sr, output_file, settings, status_callback,
-                        progress_callback, device=device,
-                        shard_time=shard_time)
+    return _master_array(audio, sr, output_file, settings, status_callback,
+                         progress_callback, device, shard_time)
 
 
 def master_array(audio: np.ndarray, sr: int, output_file: str,
@@ -90,10 +98,20 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
     int16 samples, which are converted on the device (k/32768 is exact, so
     this equals the host float conversion). Other integer types are
     rejected: their scale is not the int16 one."""
+    with stage_timer("api.master"):
+        return _master_array(audio, sr, output_file, settings,
+                             status_callback, progress_callback, device,
+                             shard_time)
+
+
+def _master_array(audio, sr, output_file, settings, status_callback,
+                  progress_callback, device, shard_time) -> dict:
+    """``master_array`` inside the caller's ``api.master`` span, which
+    closes after this returns, so that it covers the release of the
+    call's host and device buffers (the locals here)."""
     from ame_tpu_torch.graph.chain import master_graph
     from ame_tpu_torch.io import force_stereo, write_audio
     from ame_tpu_torch.ops.quantize import float_to_int16, int16_roundtrip
-    from ame_tpu_torch.utils.telemetry import log_memory_usage
 
     if settings is None:
         settings = MasterSettings()
@@ -115,11 +133,12 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
     # first emission (engine:184-187) — never a different denominator
     progress_callback(0, total_steps)
 
-    staged = torch.from_numpy(np.ascontiguousarray(audio)).to(device)
-    if audio.dtype == np.int16:
-        x = staged.to(torch.float32) * (1.0 / 32768.0)
-    else:
-        x = staged.to(torch.float32)
+    with stage_timer("api.upload"):
+        staged = torch.from_numpy(np.ascontiguousarray(audio)).to(device)
+        if audio.dtype == np.int16:
+            x = staged.to(torch.float32) * (1.0 / 32768.0)
+        else:
+            x = staged.to(torch.float32)
     if settings.mode == "compat":
         # engine:190-191: compat also forces the int16 grid
         # (set_sample_width(2) semantics)
@@ -150,11 +169,15 @@ def master_array(audio: np.ndarray, sr: int, output_file: str,
 
     status_callback("Exporting master...")
     ext = os.path.splitext(output_file)[1].lower()
-    if settings.bits == 16 and ext in (".wav", ".wave", ".aif", ".aiff"):
-        pcm = float_to_int16(y).to(torch.int16).cpu().numpy()
-        write_audio(output_file, pcm, sr, bits=16)
-    else:
-        write_audio(output_file, y.cpu().numpy(), sr, bits=settings.bits)
+    int16_out = settings.bits == 16 and ext in (".wav", ".wave", ".aif",
+                                                ".aiff")
+    # the fetch waits for the chain's queued device work
+    with stage_timer("api.fetch"):
+        if int16_out:
+            pcm = float_to_int16(y).to(torch.int16).cpu().numpy()
+        else:
+            pcm = y.cpu().numpy()
+    write_audio(output_file, pcm, sr, bits=16 if int16_out else settings.bits)
     progress_callback(total_steps, total_steps)
     log_memory_usage("After Export")
 

@@ -47,6 +47,7 @@ from ame_tpu_torch.ops._branch import holding, new_stream, warm_all_branches
 from ame_tpu_torch.ops.limiter import alimiter_compat, lookahead_limiter
 from ame_tpu_torch.ops.loudness import normalize_two_pass
 from ame_tpu_torch.ops.loudnorm import loudnorm_two_pass
+from ame_tpu_torch.utils import telemetry
 
 
 def _band_params(s: MasterSettings):
@@ -127,33 +128,42 @@ def _stage_pre_quality(x, analog, bass, mid_cut, presence, treble,
 
 
 class _StageClock:
-    """Per-stage seconds into an optional ``timer`` dict.
+    """The chain's stages: each a span ``chain.<stage>``
+    (``utils/telemetry.stage_timer``) and, into an optional ``timer``
+    dict, per-stage seconds.
 
-    On CUDA each stage is bracketed by ``torch.cuda.Event``s and the times
-    are resolved once, in ``finish``, after the last stage — no sync between
-    stages. On the CPU the ops run synchronously and the host clock is used.
-    With no sink it is a pass-through."""
+    On CUDA each stage is bracketed by one pair of ``torch.cuda.Event``s,
+    which give both the span's device times and the ``timer`` seconds;
+    these are resolved after the last stage (``finish``, for the ``timer``)
+    or when the spans are read — no sync between stages. On the CPU the ops
+    run synchronously and the host clock is used. With no ``timer`` and
+    tracing off it is a pass-through."""
 
     def __init__(self, sink: dict | None, device: torch.device):
         self.sink = sink
+        self.device = device
         self.cuda = device.type == "cuda"
         self.events = []
 
     def __call__(self, name, thunk):
-        if self.sink is None:
-            return thunk()
-        if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        with telemetry.stage_timer("chain." + name) as span:
+            # a captured graph (master_graph_fused) records no timing event
+            if self.cuda and (self.sink is not None or (
+                    span is not None and
+                    not torch.cuda.is_current_stream_capturing())):
+                start, end = telemetry.event_pair(span, self.device)
+                start.record()
+                out = thunk()
+                end.record()
+                if self.sink is not None:
+                    self.events.append((name, start, end))
+                return out
+            if self.sink is None:
+                return thunk()
+            t0 = time.perf_counter()
             out = thunk()
-            end.record()
-            self.events.append((name, start, end))
+            self._add(name, time.perf_counter() - t0)
             return out
-        t0 = time.perf_counter()
-        out = thunk()
-        self._add(name, time.perf_counter() - t0)
-        return out
 
     def _add(self, name, seconds):
         self.sink[name] = self.sink.get(name, 0.0) + seconds
@@ -261,15 +271,17 @@ def master_graph(x: torch.Tensor, sample_rate: float, settings,
       sample_rate: track sample rate.
       settings: MasterSettings (or reference settings dict).
       n_valid: true track length when x carries trailing padding.
-      timer: optional dict; per-stage seconds are accumulated into it.
+      timer: optional dict; per-stage seconds are accumulated into it
+        (the stages' spans' clock, ``_StageClock``).
 
     Returns:
       (y, info): mastered [N, 2] float32 and the loudness stats as 0-d
       tensors (when normalization ran).
     """
-    settings, structure = _structure(settings)
-    return _run(x, sample_rate, _params(settings, structure, x.device),
-                structure, n_valid, timer)
+    with telemetry.stage_timer("chain"):
+        settings, structure = _structure(settings)
+        return _run(x, sample_rate, _params(settings, structure, x.device),
+                    structure, n_valid, timer)
 
 
 _FUSED_GRAPHS = 4        # captured chains kept per device, least recent out

@@ -19,6 +19,7 @@ from ame_tpu_torch.io import av as _av
 from ame_tpu_torch.io import codecs as _codecs
 from ame_tpu_torch.io import flac as _flac
 from ame_tpu_torch.io import wav as _wav
+from ame_tpu_torch.utils.telemetry import stage_timer
 
 
 def force_stereo(audio: np.ndarray) -> np.ndarray:
@@ -37,6 +38,11 @@ def read_audio(path: str, prefer_int16: bool = False):
     ``prefer_int16``: PCM16 WAV comes back as raw int16, also when the file
     is recognized by its RIFF magic rather than its extension; every other
     format returns float32."""
+    with stage_timer("io.decode"):
+        return _read_audio(path, prefer_int16)
+
+
+def _read_audio(path, prefer_int16):
     ext = os.path.splitext(path)[1].lower()
     if ext in (".wav", ".wave"):
         return _wav.read_wav(path, prefer_int16=prefer_int16)
@@ -64,6 +70,11 @@ def read_audio(path: str, prefer_int16: bool = False):
 
 def write_audio(path: str, audio: np.ndarray, sample_rate: int,
                 bits: int = 16) -> None:
+    with stage_timer("io.write"):
+        _write_audio(path, audio, sample_rate, bits)
+
+
+def _write_audio(path, audio, sample_rate, bits):
     ext = os.path.splitext(path)[1].lower()
     if ext in (".wav", ".wave"):
         return _wav.write_wav(path, audio, sample_rate, bits)

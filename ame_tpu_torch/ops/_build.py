@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+from ame_tpu_torch.utils.telemetry import stage_timer
+
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
@@ -82,6 +84,11 @@ def build(name: str) -> dict:
     """Compile csrc/<name>.cu unless a library built from the same source
     exists. Returns {"path", "seconds" (0.0 when reused), "ptxas" (the
     compiler's resource report, empty when reused)}."""
+    with stage_timer("ops.build"):
+        return _build_cuda(name)
+
+
+def _build_cuda(name: str) -> dict:
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     so = _OUT / f"lib{name}_{digest}.so"
@@ -101,6 +108,11 @@ def build_host(name: str, sources, libs=()) -> dict:
     unless a library of the same sources and libraries exists. The hash
     covers the sources' bytes and the link line. Returns {"path",
     "seconds", "log"}; raises RuntimeError when g++ is missing or fails."""
+    with stage_timer("ops.build"):
+        return _build_host(name, sources, libs)
+
+
+def _build_host(name, sources, libs) -> dict:
     sources = [Path(s) for s in sources]
     h = hashlib.sha256()
     for s in sources:

@@ -17,16 +17,19 @@ deployment reaches for when it asks "where does the time go?").
     host clock from the call to completion; ``x_realtime`` = track seconds
     / ``steady_ms``;
   * ``stages_ms``: the staged chain's per-stage times
-    (``master_graph(timer=)``: CUDA-event spans with no sync between
-    stages; ``ame_tpu``'s stage names), with ``stages_note``;
+    (``master_graph(timer=)``: the CUDA events of the chain's stage spans,
+    ``graph/chain._StageClock``, with no sync between stages;
+    ``ame_tpu``'s stage names), with ``stages_note``;
   * ``host_rss_mb`` and ``hbm_peak_mb`` (the allocator's peak on each card
     this process uses: ``utils/telemetry``).
 
 As in ``ame_tpu``, cold start and steady state come from the fused single
 program and the stage breakdown from the staged chain.
 
-``trace_dir`` wraps the steady loop in ``torch.profiler``
-(``telemetry.profile_trace``) and writes a Chrome trace there. A trap:
+``trace_dir`` wraps the steady loop and the stage runs in
+``torch.profiler`` (``telemetry.profile_trace``) and writes a Chrome trace
+there; the stage runs' spans are in it as ``ame.chain.<stage>`` ranges,
+timed by the same CUDA events as ``stages_ms``. A trap:
 after a long stream of small launches (the compat chain's plain gain walk
 on the CPU, or a process that ran it before) torch.profiler has been seen
 to drop the first kernel records of the next session; profile in a fresh
@@ -35,6 +38,7 @@ process, as ``python -m ame_tpu_torch profile`` does.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -98,12 +102,17 @@ def profile_master(x, sample_rate: float, settings, runs: int = 10,
         host = (time.perf_counter() - t0) * 1e3
         return host, host
 
-    if trace_dir is not None:
-        with telemetry.profile_trace(trace_dir):
-            times = [_one_run() for _ in range(runs)]
-        report["trace_dir"] = trace_dir
-    else:
+    with (telemetry.profile_trace(trace_dir) if trace_dir is not None
+          else contextlib.nullcontext()):
         times = [_one_run() for _ in range(runs)]
+        if stages:
+            sink: dict = {}
+            master_graph(x, sample_rate, settings, timer={})  # warm
+            k = max(runs // 2, 1)
+            for _ in range(k):
+                master_graph(x, sample_rate, settings, timer=sink)
+    if trace_dir is not None:
+        report["trace_dir"] = trace_dir
     device_ms = [t[0] for t in times]
     med = float(np.median(device_ms))
     report["steady_ms"] = round(med, 3)
@@ -111,13 +120,7 @@ def profile_master(x, sample_rate: float, settings, runs: int = 10,
     report["steady_host_ms"] = round(float(np.median([t[1] for t in times])),
                                      3)
     report["x_realtime"] = round(seconds / max(med / 1e3, 1e-9), 1)
-
     if stages:
-        sink: dict = {}
-        master_graph(x, sample_rate, settings, timer={})  # warm
-        k = max(runs // 2, 1)
-        for _ in range(k):
-            master_graph(x, sample_rate, settings, timer=sink)
         report["stages_ms"] = {name: round(t / k * 1e3, 3)
                                for name, t in sink.items()}
         report["stages_note"] = (
