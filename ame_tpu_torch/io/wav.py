@@ -7,6 +7,14 @@ returns float32 in [-1, 1) using the reference's scaling convention
 int / 2^(bits-1) (engine:253). Encode writes int16 by default with
 trunc-toward-zero *32767 quantization (engine:255-256) unless the data is
 already int16.
+
+Neither direction copies the track through an intermediate buffer: decode
+walks the chunk headers on the open file and reads the sample chunk
+straight into the array it returns (PCM16 with ``prefer_int16``) or into
+one raw array it converts; encode writes the array's own memory when it is
+already in the file's sample type and byte order, and one converted array
+otherwise. Every sample-sized host array the codec allocates is counted in
+the open span's ``host_bytes`` (``utils.telemetry.note_host_bytes``).
 """
 
 from __future__ import annotations
@@ -16,48 +24,103 @@ import struct
 
 import numpy as np
 
+from ame_tpu_torch.utils.telemetry import note_host_bytes
+
 _WAVE_FORMAT_PCM = 1
 _WAVE_FORMAT_IEEE_FLOAT = 3
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
 
 
-def _decode_pcm(raw: bytes, bits: int, fmt: int, big_endian: bool = False):
+def _new(a: np.ndarray) -> np.ndarray:
+    """``a``, a host array the codec just allocated, counted."""
+    note_host_bytes(a.nbytes)
+    return a
+
+
+def _decode_pcm(raw: np.ndarray, bits: int, fmt: int,
+                big_endian: bool = False) -> np.ndarray:
+    """The samples of ``raw`` (uint8) as float32, in one new array (24-bit:
+    two). The arithmetic is the reference's, done in place: each step is
+    exact or rounds once, as there."""
     bo = ">" if big_endian else "<"
     if fmt == _WAVE_FORMAT_IEEE_FLOAT:
         dt = np.dtype(f"{bo}f4" if bits == 32 else f"{bo}f8")
-        return np.frombuffer(raw, dt).astype(np.float32)
+        return _new(np.frombuffer(raw, dt).astype(np.float32))
     if bits == 8 and not big_endian:
         # WAV 8-bit is unsigned
-        return ((np.frombuffer(raw, np.uint8).astype(np.float32) - 128.0)
-                / 128.0)
+        x = _new(raw.astype(np.float32))
+        x -= 128.0
+        x /= 128.0
+        return x
     if bits == 8:
-        return np.frombuffer(raw, np.int8).astype(np.float32) / 128.0
+        x = _new(raw.view(np.int8).astype(np.float32))
+        x /= 128.0
+        return x
     if bits == 16:
-        return (np.frombuffer(raw, np.dtype(f"{bo}i2")).astype(np.float32)
-                / 32768.0)
+        x = _new(np.frombuffer(raw, np.dtype(f"{bo}i2")).astype(np.float32))
+        x /= 32768.0
+        return x
     if bits == 24:
-        b = np.frombuffer(raw, np.uint8).reshape(-1, 3)
+        b = raw.reshape(-1, 3)
+        # each sample as the top three bytes of an int32, then shifted down:
+        # the shift sign-extends
+        w = _new(np.zeros((len(b), 4), np.uint8))
         if big_endian:
-            val = (b[:, 0].astype(np.int32) << 16) | \
-                  (b[:, 1].astype(np.int32) << 8) | b[:, 2].astype(np.int32)
+            w[:, :3] = b
+            v = w.view(">i4").reshape(-1)
         else:
-            val = (b[:, 2].astype(np.int32) << 16) | \
-                  (b[:, 1].astype(np.int32) << 8) | b[:, 0].astype(np.int32)
-        val = (val << 8) >> 8  # sign-extend
-        return val.astype(np.float32) / 8388608.0
+            w[:, 1:] = b
+            v = w.view("<i4").reshape(-1)
+        v >>= 8
+        x = _new(v.astype(np.float32))
+        x /= 8388608.0
+        return x
     if bits == 32:
-        return (np.frombuffer(raw, np.dtype(f"{bo}i4")).astype(np.float64)
-                / 2147483648.0).astype(np.float32)
+        # int32 -> float32 rounds once, as int32 -> float64 -> float32 does
+        # after the exact division by 2^31
+        x = _new(np.frombuffer(raw, np.dtype(f"{bo}i4")).astype(np.float32))
+        x /= 2147483648.0
+        return x
     raise ValueError(f"unsupported PCM bit depth: {bits}")
 
 
-def _read_file(path: str) -> bytearray:
-    """The whole file as a bytearray: arrays decoded from it are writable,
-    so ``torch.from_numpy`` can take them without a copy or a warning."""
-    with open(path, "rb") as f:
-        data = bytearray(os.fstat(f.fileno()).st_size)
-        f.readinto(data)
-    return data
+def _chunks(f, size_fmt: str):
+    """Walk the chunks after the 12-byte form header of the open file
+    ``f``: yields (id, declared size, body offset, bytes the file holds of
+    the body), leaving ``f`` anywhere; odd sizes skip their pad byte."""
+    end = os.fstat(f.fileno()).st_size
+    pos = 12
+    while pos + 8 <= end:
+        f.seek(pos)
+        head = f.read(8)
+        (size,) = struct.unpack(size_fmt, head[4:8])
+        yield head[:4], size, pos + 8, min(size, end - pos - 8)
+        pos += 8 + size + (size & 1)
+
+
+def _body(f, offset: int, n: int) -> bytes:
+    """A small chunk body (header fields), ``n`` bytes at ``offset``."""
+    f.seek(offset)
+    return f.read(n)
+
+
+def _read_samples(f, offset: int, nbytes: int, dtype: str) -> np.ndarray:
+    """``nbytes`` at ``offset`` read into a new 1-D ``dtype`` array of the
+    whole samples read; ValueError where ``nbytes`` is no whole number of
+    samples, as ``np.frombuffer`` over the bytes raises."""
+    dt = np.dtype(dtype)
+    if nbytes % dt.itemsize:
+        raise ValueError("buffer size must be a multiple of element size")
+    x = _new(np.empty(nbytes // dt.itemsize, dt))
+    view = x.view(np.uint8)
+    f.seek(offset)
+    got = 0
+    while got < nbytes:            # short only at the end of the file
+        n = f.readinto(view[got:])
+        if not n:
+            break
+        got += n
+    return x[:got // dt.itemsize]
 
 
 def read_wav(path: str, prefer_int16: bool = False):
@@ -65,35 +128,64 @@ def read_wav(path: str, prefer_int16: bool = False):
 
     ``prefer_int16``: for PCM16 files, return the raw int16 samples instead
     of converting to float32 — the pipeline uploads int16 and converts on
-    the device. Non-PCM16 files still return float32."""
-    data = _read_file(path)
-    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
-        raise ValueError(f"{path}: not a RIFF/WAVE file")
-    pos = 12
-    fmt = None
-    audio = None
-    while pos + 8 <= len(data):
-        cid = data[pos:pos + 4]
-        (size,) = struct.unpack("<I", data[pos + 4:pos + 8])
-        body = data[pos + 8:pos + 8 + size]
-        if cid == b"fmt ":
-            (tag, channels, rate, _br, _ba, bits) = struct.unpack(
-                "<HHIIHH", body[:16])
-            if tag == _WAVE_FORMAT_EXTENSIBLE and size >= 40:
-                (tag,) = struct.unpack("<H", body[24:26])  # subformat GUID lead
-            fmt = (tag, channels, rate, bits)
-        elif cid == b"data":
-            audio = body
-        pos += 8 + size + (size & 1)
-    if fmt is None or audio is None:
-        raise ValueError(f"{path}: missing fmt/data chunk")
-    tag, channels, rate, bits = fmt
-    if prefer_int16 and tag == _WAVE_FORMAT_PCM and bits == 16:
-        x = np.frombuffer(audio, np.dtype("<i2"))
-    else:
-        x = _decode_pcm(audio, bits, tag)
+    the device. Non-PCM16 files still return float32.
+
+    The array is the caller's own: writable, C-contiguous, and backed by
+    memory the size of the sample chunk, not of the file."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
+        fmt = None
+        data = None
+        for cid, size, offset, held in _chunks(f, "<I"):
+            if cid == b"fmt ":
+                body = _body(f, offset, held)
+                (tag, channels, rate, _br, _ba, bits) = struct.unpack(
+                    "<HHIIHH", body[:16])
+                if tag == _WAVE_FORMAT_EXTENSIBLE and size >= 40:
+                    # subformat GUID lead
+                    (tag,) = struct.unpack("<H", body[24:26])
+                fmt = (tag, channels, rate, bits)
+            elif cid == b"data":
+                data = (offset, held)
+        if fmt is None or data is None:
+            raise ValueError(f"{path}: missing fmt/data chunk")
+        tag, channels, rate, bits = fmt
+        if prefer_int16 and tag == _WAVE_FORMAT_PCM and bits == 16:
+            x = _read_samples(f, *data, "<i2")
+        else:
+            x = _decode_pcm(_read_samples(f, *data, "u1"), bits, tag)
     n = len(x) // channels
     return x[: n * channels].reshape(n, channels), rate
+
+
+def _as_written(a: np.ndarray, dtype: str) -> np.ndarray:
+    """``a`` in the file's sample type ``dtype``, C-contiguous: ``a``
+    itself where it already is, else one new array."""
+    if a.dtype == np.dtype(dtype) and a.flags.c_contiguous:
+        return a
+    return _new(np.ascontiguousarray(a, dtype))
+
+
+def _quantized(audio: np.ndarray, scale: float) -> np.ndarray:
+    """trunc(clip(audio, -1, 1) * scale), in one new float array."""
+    t = _new(np.clip(audio, -1.0, 1.0))
+    t *= scale
+    return np.trunc(t, out=t)
+
+
+def _pcm24(audio: np.ndarray, big_endian: bool) -> np.ndarray:
+    """[N * C, 3] uint8: each sample's 24-bit two's complement."""
+    bo = ">" if big_endian else "<"
+    v = _new(_quantized(audio, 8388607.0).astype(f"{bo}i4", order="C"))
+    b = v.view(np.uint8).reshape(-1, 4)
+    return _new(np.ascontiguousarray(b[:, 1:] if big_endian else b[:, :3]))
+
+
+def _write(f, a: np.ndarray) -> None:
+    """Write the C-contiguous ``a``'s memory, uncopied."""
+    f.write(a.reshape(-1).view(np.uint8))
 
 
 def write_wav(path: str, audio: np.ndarray, sample_rate: int,
@@ -105,36 +197,28 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int,
     n, c = audio.shape
     if bits == 16:
         if audio.dtype == np.int16:
-            pcm = audio.astype("<i2", copy=False)   # pre-quantized samples
+            pcm = _as_written(audio, "<i2")   # pre-quantized samples
         else:
-            pcm = np.trunc(np.clip(audio, -1.0, 1.0)
-                           * 32767.0).astype("<i2")
-        payload = pcm.tobytes()
+            pcm = _new(_quantized(audio, 32767.0).astype("<i2", order="C"))
         tag = _WAVE_FORMAT_PCM
     elif bits == 24:
-        v = np.trunc(np.clip(audio, -1.0, 1.0) * 8388607.0).astype(np.int32)
-        b = np.empty((v.size, 3), np.uint8)
-        flat = v.reshape(-1)
-        b[:, 0] = flat & 0xFF
-        b[:, 1] = (flat >> 8) & 0xFF
-        b[:, 2] = (flat >> 16) & 0xFF
-        payload = b.tobytes()
+        pcm = _pcm24(audio, big_endian=False)
         tag = _WAVE_FORMAT_PCM
     elif bits == 32:
-        payload = audio.astype("<f4").tobytes()
+        pcm = _as_written(audio, "<f4")
         tag = _WAVE_FORMAT_IEEE_FLOAT
     else:
         raise ValueError(f"unsupported write depth: {bits}")
     block = c * bits // 8
     hdr = struct.pack(
         "<4sI4s4sIHHIIHH4sI",
-        b"RIFF", 36 + len(payload), b"WAVE",
+        b"RIFF", 36 + pcm.nbytes, b"WAVE",
         b"fmt ", 16, tag, c, int(sample_rate),
         int(sample_rate) * block, block, bits,
-        b"data", len(payload))
+        b"data", pcm.nbytes)
     with open(path, "wb") as f:
         f.write(hdr)
-        f.write(payload)
+        _write(f, pcm)
 
 
 # ---------------------------------------------------------------------------
@@ -176,55 +260,48 @@ def write_aiff(path: str, audio: np.ndarray, sample_rate: int,
     n, c = audio.shape
     if bits == 16:
         if audio.dtype == np.int16:
-            payload = audio.astype(">i2").tobytes()  # pre-quantized
+            pcm = _as_written(audio, ">i2")  # pre-quantized
         else:
-            payload = np.trunc(
-                np.clip(audio, -1.0, 1.0) * 32767.0).astype(">i2").tobytes()
+            pcm = _new(_quantized(audio, 32767.0).astype(">i2", order="C"))
     elif bits == 24:
-        v = np.trunc(np.clip(audio, -1.0, 1.0) * 8388607.0).astype(np.int32)
-        b = np.empty((v.size, 3), np.uint8)
-        flat = v.reshape(-1)
-        b[:, 0] = (flat >> 16) & 0xFF
-        b[:, 1] = (flat >> 8) & 0xFF
-        b[:, 2] = flat & 0xFF
-        payload = b.tobytes()
+        pcm = _pcm24(audio, big_endian=True)
     else:
         raise ValueError(f"unsupported AIFF write depth: {bits}")
     comm = struct.pack(">HIH", c, n, bits) + _write_extended80(sample_rate)
-    ssnd = struct.pack(">II", 0, 0) + payload
-    chunks = b""
-    for cid, body in ((b"COMM", comm), (b"SSND", ssnd)):
-        chunks += cid + struct.pack(">I", len(body)) + body
-        if len(body) & 1:
-            chunks += b"\x00"
+    ssnd = 8 + pcm.nbytes          # the offset and block-size words first
+    pad = ssnd & 1
+    form = 4 + 8 + len(comm) + (len(comm) & 1) + 8 + ssnd + pad
     with open(path, "wb") as f:
-        f.write(b"FORM" + struct.pack(">I", 4 + len(chunks)) + b"AIFF")
-        f.write(chunks)
+        f.write(b"FORM" + struct.pack(">I", form) + b"AIFF"
+                + b"COMM" + struct.pack(">I", len(comm)) + comm
+                + b"\x00" * (len(comm) & 1)
+                + b"SSND" + struct.pack(">III", ssnd, 0, 0))
+        _write(f, pcm)
+        f.write(b"\x00" * pad)
 
 
 def read_aiff(path: str):
     """Returns (audio [N, C] float32, sample_rate int)."""
-    data = _read_file(path)
-    if data[:4] != b"FORM" or data[8:12] not in (b"AIFF", b"AIFC"):
-        raise ValueError(f"{path}: not an AIFF file")
-    pos = 12
-    comm = None
-    ssnd = None
-    while pos + 8 <= len(data):
-        cid = data[pos:pos + 4]
-        (size,) = struct.unpack(">I", data[pos + 4:pos + 8])
-        body = data[pos + 8:pos + 8 + size]
-        if cid == b"COMM":
-            channels, _frames, bits = struct.unpack(">HIH", body[:8])
-            rate = _read_extended80(body[8:18])
-            comm = (channels, bits, int(round(rate)))
-        elif cid == b"SSND":
-            (offset, _blk) = struct.unpack(">II", body[:8])
-            ssnd = body[8 + offset:]
-        pos += 8 + size + (size & 1)
-    if comm is None or ssnd is None:
-        raise ValueError(f"{path}: missing COMM/SSND chunk")
-    channels, bits, rate = comm
-    x = _decode_pcm(ssnd, bits, _WAVE_FORMAT_PCM, big_endian=True)
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if head[:4] != b"FORM" or head[8:12] not in (b"AIFF", b"AIFC"):
+            raise ValueError(f"{path}: not an AIFF file")
+        comm = None
+        ssnd = None
+        for cid, _size, offset, held in _chunks(f, ">I"):
+            if cid == b"COMM":
+                body = _body(f, offset, held)
+                channels, _frames, bits = struct.unpack(">HIH", body[:8])
+                rate = _read_extended80(body[8:18])
+                comm = (channels, bits, int(round(rate)))
+            elif cid == b"SSND":
+                (skip, _blk) = struct.unpack(
+                    ">II", _body(f, offset, min(held, 8)))
+                ssnd = (offset + 8 + skip, max(held - 8 - skip, 0))
+        if comm is None or ssnd is None:
+            raise ValueError(f"{path}: missing COMM/SSND chunk")
+        channels, bits, rate = comm
+        x = _decode_pcm(_read_samples(f, *ssnd, "u1"), bits,
+                        _WAVE_FORMAT_PCM, big_endian=True)
     n = len(x) // channels
     return x[: n * channels].reshape(n, channels), rate

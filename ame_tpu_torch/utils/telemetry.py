@@ -12,6 +12,7 @@ psutil RSS samples at pipeline milestones (audio_mastering_engine.py:30,
     pipeline milestone, logged at INFO, and recorded while ``tracing()`` is
     on;
   * ``tracing`` / ``records`` — the span recorder's switch and its records;
+  * ``note_host_bytes`` — a count of fresh host bytes, in the open span;
   * ``profile_trace`` — a ``torch.profiler`` span written as a Chrome trace.
 
 Tracing is off by default; a span site then costs a read of the module's
@@ -19,11 +20,13 @@ switch and the logger's ``isEnabledFor`` check. While ``tracing()`` is on,
 each span is recorded in memory (a bounded deque, oldest out) with its
 name, its start and end on ``time.perf_counter``, its parent span, its
 track (the id of the root span of its thread's call, so concurrent
-workers never mix) and the thread's minor page faults over it
-(``getrusage``). While a ``torch.profiler`` session is active too, each
-span is also a ``record_function`` range ``ame.<name>``, so that it sits
-in the device trace on the profiler's clock; outside a session no range
-is entered (one costs microseconds even with no profiler).
+workers never mix), the thread's minor page faults over it
+(``getrusage``) and the bytes of the sample-sized host arrays made in it
+(``note_host_bytes``: the codecs count theirs). While a
+``torch.profiler`` session is active too, each span is also a
+``record_function`` range ``ame.<name>``, so that it sits in the device
+trace on the profiler's clock; outside a session no range is entered
+(one costs microseconds even with no profiler).
 
 Telemetry never creates a CUDA context: on a process that has not touched
 a card, ``device_memory_stats`` reports nothing for it.
@@ -122,16 +125,18 @@ class Span:
     counts no thread's). ``dev_t0`` / ``dev_t1``: for a span timed with
     CUDA events (``event_pair``), its device start and end in ms on the
     recorder's device clock, resolved when the records are read; None
-    otherwise."""
+    otherwise. ``host_bytes``: the bytes of the sample-sized host arrays
+    the thread allocated while the span was its innermost
+    (``note_host_bytes``)."""
 
     __slots__ = ("name", "id", "parent", "track", "thread", "t0", "t1",
-                 "faults", "dev_t0", "dev_t1", "events")
+                 "faults", "host_bytes", "dev_t0", "dev_t1", "events")
 
     def __init__(self, name, id_, parent, track):
         self.name, self.id, self.parent, self.track = name, id_, parent, track
         self.thread = threading.get_ident()
         self.t0 = self.t1 = 0.0
-        self.faults = 0
+        self.faults = self.host_bytes = 0
         self.dev_t0 = self.dev_t1 = self.events = None
 
 
@@ -271,6 +276,16 @@ def stage_timer(name: str):
     if log.isEnabledFor(_INFO):
         return _Logged(name)
     return _OFF
+
+
+def note_host_bytes(n: int) -> None:
+    """Count ``n`` bytes of host memory a sample-sized array takes, in the
+    calling thread's innermost open span, while ``tracing()`` is on; off,
+    a read of the module's switch."""
+    if _on:
+        stack = getattr(_local, "stack", None)
+        if stack:
+            stack[-1].host_bytes += n
 
 
 def event_pair(span: Span | None, device: torch.device):
