@@ -146,20 +146,17 @@ class _StageClock:
         self.events = []
 
     def __call__(self, name, thunk):
+        if self.sink is None:   # the span alone, timed on the card by it
+            with telemetry.stage_timer("chain." + name, self.device):
+                return thunk()
         with telemetry.stage_timer("chain." + name) as span:
-            # a captured graph (master_graph_fused) records no timing event
-            if self.cuda and (self.sink is not None or (
-                    span is not None and
-                    not torch.cuda.is_current_stream_capturing())):
+            if self.cuda:
                 start, end = telemetry.event_pair(span, self.device)
                 start.record()
                 out = thunk()
                 end.record()
-                if self.sink is not None:
-                    self.events.append((name, start, end))
+                self.events.append((name, start, end))
                 return out
-            if self.sink is None:
-                return thunk()
             t0 = time.perf_counter()
             out = thunk()
             self._add(name, time.perf_counter() - t0)

@@ -9,7 +9,8 @@ with its ``dynamic_domain`` flag), ``gated_stats_from_hops``,
 0-d tensors, so a master needs no host round trip until its info is read.
 
   * K-filter: the 2-section cascade through ``scan_iir.sosfilt``.
-  * block energies: 100 ms hop sums, each 400 ms block = sum of 4 hops.
+  * block energies: 100 ms hop sums, each 400 ms block the direct sum of
+    its 4 hops (``_block_sums``; ``ame_tpu`` differences a running sum).
   * integrated: -70 LUFS absolute gate, -10 LU relative gate.
   * LRA: 3 s blocks at a 1 s hop, -20 LU relative gate, P10..P95 at
     round-nearest order statistics (libebur128 semantics).
@@ -32,11 +33,24 @@ import torch.nn.functional as F
 from ame_tpu_torch.dsp import design
 from ame_tpu_torch.ops._branch import hold
 from ame_tpu_torch.ops.scan_iir import sosfilt
+from ame_tpu_torch.utils.telemetry import stage_timer
 
 
 # ---------------------------------------------------------------------------
 # Block energies and gates
 # ---------------------------------------------------------------------------
+
+def _block_sums(sums: torch.Tensor, steps: int) -> torch.Tensor:
+    """out[j] = sums[j] + ... + sums[j + steps - 1] along dim 0, added
+    directly. Not a difference of running sums: in float32 that leaves a
+    rounding residue of the running total in a block of digital silence,
+    which can pass the -70 LUFS gate; a direct sum of zeros is 0."""
+    n_blocks = max(sums.shape[0] - steps + 1, 0)
+    out = sums[:n_blocks]
+    for k in range(1, steps):
+        out = out + sums[k:k + n_blocks]
+    return out
+
 
 def _gating_block_powers(y: torch.Tensor, sample_rate: float, block_s: float,
                          hop_s: float, n_valid: int | None = None):
@@ -45,7 +59,7 @@ def _gating_block_powers(y: torch.Tensor, sample_rate: float, block_s: float,
     [n_blocks] validity mask); blocks ending past ``n_valid`` are masked."""
     n = y.shape[0]
     hop = int(round(hop_s * sample_rate))
-    steps = int(round(block_s / hop_s))  # sub-hops per block (4 or 30)
+    steps = int(round(block_s / hop_s))  # sub-hops per block (4 or 3)
     n_hops = n // hop
     if n_hops < steps:
         z = y.new_zeros((0,))
@@ -53,9 +67,7 @@ def _gating_block_powers(y: torch.Tensor, sample_rate: float, block_s: float,
     sq = torch.sum(y * y, dim=1)
     hop_sums = torch.sum(sq[: n_hops * hop].reshape(n_hops, hop), dim=1)
     n_blocks = n_hops - steps + 1         # block j covers hops [j, j+steps)
-    csum = torch.cat([hop_sums.new_zeros((1,)), torch.cumsum(hop_sums, 0)])
-    block_sums = csum[steps:steps + n_blocks] - csum[:n_blocks]
-    powers = block_sums / (hop * steps)
+    powers = _block_sums(hop_sums, steps) / (hop * steps)
     if n_valid is None:
         valid = torch.ones((n_blocks,), dtype=torch.bool, device=y.device)
     else:
@@ -121,11 +133,16 @@ def _measure(x: torch.Tensor, sample_rate: float, n_valid: int | None = None,
     K-weighting of ``design.k_weighting_dynamic_sos``."""
     sos = (design.k_weighting_dynamic_sos(sample_rate) if dynamic_domain
            else design.k_weighting_sos(sample_rate))
-    y, _ = sosfilt(sos, x)
-    p_m, v_m = _gating_block_powers(y, sample_rate, 0.400, 0.100, n_valid)
-    integrated, rel_thresh = _integrated_gate(p_m, v_m)
-    p_s, v_s = _gating_block_powers(y, sample_rate, 3.000, 1.000, n_valid)
-    return integrated, _lra_gate(p_s, v_s), rel_thresh
+    with stage_timer("loudness.kweight", x.device):
+        y, _ = sosfilt(sos, x)
+    with stage_timer("loudness.gate", x.device):
+        p_m, v_m = _gating_block_powers(y, sample_rate, 0.400, 0.100,
+                                        n_valid)
+        integrated, rel_thresh = _integrated_gate(p_m, v_m)
+        p_s, v_s = _gating_block_powers(y, sample_rate, 3.000, 1.000,
+                                        n_valid)
+        lra = _lra_gate(p_s, v_s)
+    return integrated, lra, rel_thresh
 
 
 def gated_stats_from_hops(hop_sums: torch.Tensor, hop: int,
@@ -139,18 +156,16 @@ def gated_stats_from_hops(hop_sums: torch.Tensor, hop: int,
     H = hop_sums.shape[0]
     nv = H * hop if n_valid is None else int(n_valid)
     dev = hop_sums.device
-    csum = torch.cat([hop_sums.new_zeros((1,)), torch.cumsum(hop_sums, 0)])
-    nb_m = H - 4 + 1
-    p_m = (csum[4:4 + nb_m] - csum[:nb_m]) / (hop * 4)
+    p_m = _block_sums(hop_sums, 4) / (hop * 4)
+    nb_m = p_m.shape[0]
     v_m = (torch.arange(nb_m, device=dev) + 4) * hop <= nv
     integrated, rel_thresh = _integrated_gate(p_m, v_m)
     hps = 10                                # hops per second
     n_sec = H // hps
     if n_sec >= 3:
         hs_s = torch.sum(hop_sums[: n_sec * hps].reshape(n_sec, hps), dim=1)
-        csum_s = torch.cat([hs_s.new_zeros((1,)), torch.cumsum(hs_s, 0)])
-        nb_s = n_sec - 3 + 1
-        p_s = (csum_s[3:3 + nb_s] - csum_s[:nb_s]) / (hop * hps * 3)
+        p_s = _block_sums(hs_s, 3) / (hop * hps * 3)
+        nb_s = p_s.shape[0]
         v_s = (torch.arange(nb_s, device=dev) + 3) * (hop * hps) <= nv
         lra = _lra_gate(p_s, v_s, dt)
     else:
@@ -214,19 +229,22 @@ def true_peak(x: torch.Tensor) -> torch.Tensor:
     n, c = x.shape
     Lb = _TP_LB
     nb = -(-n // Lb)
-    M = hold(_tp_matrix(x.device))
-    # one leading zero tile (zero FIR history) + tail padding to a tile
-    xp = F.pad(x, (0, 0, Lb, nb * Lb - n))
-    xt = xp.reshape(nb + 1, Lb, c)
-    xcat = _bf16_round(torch.cat([xt[:-1], xt[1:]], dim=1))   # [nb, 2LB, C]
-    out = torch.einsum("vu,buc->bvc", M, xcat)                # f32 products
-    # mask interpolants of the zero tail padding
-    t_in_tile = torch.arange(M.shape[0], device=x.device) % Lb
-    sample_n = (torch.arange(nb, device=x.device)[:, None] * Lb
-                + t_in_tile[None, :])
-    valid = (sample_n < n)[:, :, None]
-    peak_os = torch.amax(torch.where(valid, out.abs(), torch.zeros_like(out)))
-    return torch.maximum(peak_os, torch.amax(x.abs()))
+    with stage_timer("loudness.true_peak", x.device):
+        M = hold(_tp_matrix(x.device))
+        # one leading zero tile (zero FIR history) + tail padding to a tile
+        xp = F.pad(x, (0, 0, Lb, nb * Lb - n))
+        xt = xp.reshape(nb + 1, Lb, c)
+        # [nb, 2LB, C] tiles; the products in f32
+        xcat = _bf16_round(torch.cat([xt[:-1], xt[1:]], dim=1))
+        out = torch.einsum("vu,buc->bvc", M, xcat)
+        # mask interpolants of the zero tail padding
+        t_in_tile = torch.arange(M.shape[0], device=x.device) % Lb
+        sample_n = (torch.arange(nb, device=x.device)[:, None] * Lb
+                    + t_in_tile[None, :])
+        valid = (sample_n < n)[:, :, None]
+        peak_os = torch.amax(torch.where(valid, out.abs(),
+                                         torch.zeros_like(out)))
+        return torch.maximum(peak_os, torch.amax(x.abs()))
 
 
 def true_peak_db(x: torch.Tensor) -> torch.Tensor:
@@ -278,12 +296,13 @@ def normalize_two_pass(x: torch.Tensor, sample_rate: float,
     if x.ndim == 1:
         x = x[:, None]
     stats = measure(x, sample_rate, n_valid)
-    silent = ~torch.isfinite(stats["input_i"])
-    offset = target_lufs - stats["input_i"]
-    if protect_tp:
-        offset = torch.minimum(offset, target_tp_db - stats["input_tp"])
-    gain_db = torch.where(silent, torch.zeros_like(offset), offset)
-    y = x * 10.0 ** (gain_db / 20.0)
-    return y, {**stats, "gain_db": gain_db,
-               "output_i": stats["input_i"] + gain_db,
-               "linear_mode": torch.ones((), device=x.device)}
+    with stage_timer("loudness.gain", x.device):
+        silent = ~torch.isfinite(stats["input_i"])
+        offset = target_lufs - stats["input_i"]
+        if protect_tp:
+            offset = torch.minimum(offset, target_tp_db - stats["input_tp"])
+        gain_db = torch.where(silent, torch.zeros_like(offset), offset)
+        y = x * 10.0 ** (gain_db / 20.0)
+        return y, {**stats, "gain_db": gain_db,
+                   "output_i": stats["input_i"] + gain_db,
+                   "linear_mode": torch.ones((), device=x.device)}

@@ -6,9 +6,11 @@ Ported: ``_gauss_weights``, ``_hist_centers``, ``_frame_moments``,
 ``_dynamic_jit`` (here ``_dynamic``), ``dynamic_loudnorm``, the fused pass 1
 (``_pass1_fused``), ``loudnorm_pass1``, ``loudnorm`` and
 ``loudnorm_two_pass``. The controller is the reference's black-box-pinned
-af_loudnorm spec, in the same parallel form (cumsums, a cumulative
-histogram, a running max of fresh frames — no per-frame loop); see the JAX
-module's docstring for the probed rules.
+af_loudnorm spec, in the same parallel form (a cumulative histogram, a
+running max of fresh frames — no per-frame loop); see the JAX module's
+docstring for the probed rules. Its block and short-term energies are
+direct sums of frame energies (``loudness._block_sums``), where the JAX
+module differences a float32 running sum.
 
 Each ``lax.cond`` of the reference (the linear-mode verdict, the
 silent-input passthrough) is a ``_branch.device_if_else`` pair on a 0-d
@@ -30,8 +32,9 @@ import torch.nn.functional as F
 
 from ame_tpu_torch.dsp import design
 from ame_tpu_torch.ops._branch import device_if_else, hold
-from ame_tpu_torch.ops.loudness import (_power_to_lufs, gated_stats_from_hops,
-                                        measure, true_peak_db)
+from ame_tpu_torch.ops.loudness import (_block_sums, _power_to_lufs,
+                                        gated_stats_from_hops, measure,
+                                        true_peak_db)
 from ame_tpu_torch.ops.scan_iir import sosfilt
 
 FRAME_S = 0.100          # 100 ms frames
@@ -107,14 +110,12 @@ def _controller_gains(M0, M1, M2, peak, L: int, F_eff: int, blk_valid,
     measured_i, measured_thresh, offset = (s(measured_i), s(measured_thresh),
                                            s(offset))
     nf = M0.shape[0]
-    zero1 = M0.new_zeros((1,))
-    cs = torch.cat([zero1, torch.cumsum(M0, 0)])
     # short-term input loudness: trailing 3 s (30 hops) per frame
     st_in = torch.cat([M0.new_full((RING - 1,), -1e9),
-                       _power_to_lufs((cs[RING:] - cs[:-RING]) / (RING * L))])
+                       _power_to_lufs(_block_sums(M0, RING) / (RING * L))])
     # input-side gating blocks (400 ms, one per hop): block ending at f
     blk_lufs = torch.cat([M0.new_full((3,), -1e9),
-                          _power_to_lufs((cs[4:] - cs[:-4]) / (4 * L))])
+                          _power_to_lufs(_block_sums(M0, 4) / (4 * L))])
 
     bin_lufs = hold(_hist_centers_on(dev))
     bin_power = 10.0 ** ((bin_lufs + 0.691) / 10.0)
@@ -176,10 +177,11 @@ def _controller_gains(M0, M1, M2, peak, L: int, F_eff: int, blk_valid,
     g0_pre, g1_pre = smooth_gains(d_pre)
     dg = g1_pre - g0_pre
     out_pow_pre = g0_pre * g0_pre * M0 + 2 * g0_pre * dg * M1 + dg * dg * M2
-    cso = torch.cat([zero1, torch.cumsum(out_pow_pre, 0)])
+    # trailing sums over frames [lo, f], fewer than RING at the start
     lo = torch.clamp(farr - (RING - 1), min=0)
-    st_out = _power_to_lufs((cso[farr + 1] - cso[lo])
-                            / ((farr + 1 - lo) * L).to(dt))
+    st_out = _power_to_lufs(
+        _block_sums(F.pad(out_pow_pre, (RING - 1, 0)), RING)
+        / ((farr + 1 - lo) * L).to(dt))
 
     # latch: first INNER frame whose output short-term reaches target_i
     can_latch = (st_out >= target_i) & (farr + RING < F_eff)

@@ -35,8 +35,8 @@ from ame_tpu_torch.graph.multiband import quality_band_split
 from ame_tpu_torch.ops import eq, saturate
 from ame_tpu_torch.ops import window as W
 from ame_tpu_torch.ops.compressor import attack_sos
-from ame_tpu_torch.ops.loudness import (_TP_LB, _power_to_lufs,
-                                        _tp_tile_matrix)
+from ame_tpu_torch.ops.loudness import (_TP_LB, _block_sums,
+                                        _power_to_lufs, _tp_tile_matrix)
 from ame_tpu_torch.ops.scan_iir import sosfilt
 
 
@@ -118,10 +118,7 @@ def _block_powers_stacked(y2b: torch.Tensor, sample_rate: float,
     n_hops = y2b.shape[0] // hop
     sq = _pair_sum_sq(y2b)                                   # [N, B]
     hop_sums = sq[:n_hops * hop].reshape(n_hops, hop, -1).sum(dim=1)
-    n_blocks = n_hops - steps + 1
-    cs = torch.cat([hop_sums.new_zeros((1, sq.shape[1])),
-                    torch.cumsum(hop_sums, dim=0)])
-    return (cs[steps:steps + n_blocks] - cs[:n_blocks]) / (hop * steps)
+    return _block_sums(hop_sums, steps) / (hop * steps)
 
 
 def measure_stacked(x2b: torch.Tensor, sample_rate: float):

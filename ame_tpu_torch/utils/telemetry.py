@@ -10,7 +10,8 @@ psutil RSS samples at pipeline milestones (audio_mastering_engine.py:30,
     card's free / total memory;
   * ``stage_timer`` — the program's span: a wall-clock span around a
     pipeline milestone, logged at INFO, and recorded while ``tracing()`` is
-    on;
+    on; given a CUDA device, its device work is also timed by an event
+    pair;
   * ``tracing`` / ``records`` — the span recorder's switch and its records;
   * ``note_host_bytes`` — a count of fresh host bytes, in the open span;
   * ``profile_trace`` — a ``torch.profiler`` span written as a Chrome trace.
@@ -267,11 +268,40 @@ class _Recorded:
         return False
 
 
-def stage_timer(name: str):
+class _Timed(_Recorded):
+    """A recorded span whose device work on a CUDA device is bracketed by
+    an ``event_pair``; under a stream capture it records no event, which
+    the captured graph would hold."""
+
+    __slots__ = ("device", "end")
+
+    def __init__(self, name, recorder, device):
+        super().__init__(name, recorder)
+        self.device, self.end = device, None
+
+    def __enter__(self):
+        s = super().__enter__()
+        if not torch.cuda.is_current_stream_capturing():
+            start, self.end = event_pair(s, self.device)
+            start.record()
+        return s
+
+    def __exit__(self, *exc):
+        if self.end is not None:
+            self.end.record()
+        return super().__exit__(*exc)
+
+
+def stage_timer(name: str, device: torch.device | None = None):
     """The program's span around a pipeline milestone ``name``: a context
     manager that yields the ``Span`` it records while ``tracing()`` is on,
-    and None otherwise. Its host time is logged at INFO either way."""
+    and None otherwise. Its host time is logged at INFO either way. On a
+    CUDA ``device`` a recorded span also gets its device times
+    (``dev_t0`` / ``dev_t1``) from a pair of events around its work, with
+    no sync; nothing is recorded while tracing is off."""
     if _on:
+        if device is not None and device.type == "cuda":
+            return _Timed(name, _recorder, device)
         return _Recorded(name, _recorder)
     if log.isEnabledFor(_INFO):
         return _Logged(name)

@@ -221,3 +221,103 @@ def test_extents_nest_and_the_deque_is_bounded(monkeypatch):
                 pass
     assert not telemetry._on
     assert [s.name for s in telemetry.records()] == ["s2", "s3", "s4"]
+
+
+# ---------------------------------------------------------------------------
+# The loudness stage's spans (ops/loudness)
+# ---------------------------------------------------------------------------
+
+LOUD = {"bass_boost": 1.5, "lufs": -14.0}
+LOUDNESS = ["loudness.kweight", "loudness.gate", "loudness.true_peak",
+            "loudness.gain"]
+
+
+def test_loudness_children_nest_under_the_stage(track, tmp_path):
+    """At ``lufs=-14`` the stage ``chain.loudnorm`` holds four children in
+    order, each inside it and on its track, with no device times on the
+    CPU."""
+    with telemetry.tracing():
+        api.master_file(track, str(tmp_path / "out.wav"), LOUD,
+                        device="cpu")
+    spans = telemetry.records()
+    (stage,) = [s for s in spans if s.name == "chain.loudnorm"]
+    kids = sorted(_children(spans, stage), key=lambda s: s.t0)
+    assert [s.name for s in kids] == LOUDNESS
+    for s in kids:
+        assert stage.t0 <= s.t0 <= s.t1 <= stage.t1
+        assert s.track == stage.track and s.dev_t0 is None
+
+
+@pytest.mark.parametrize("seconds", [2.5, 7.0])
+def test_loudness_children_once_a_call_with_or_without_lra_blocks(seconds):
+    """Under 3 s the gate measures no 3 s block, over it it does; either
+    way a call records each child once, inside ``chain.loudnorm`` and in
+    order, and none outside the stage."""
+    x = torch.from_numpy(_signal(seconds))
+    with telemetry.tracing():
+        y, info = master_graph(x, SR, LOUD)
+    spans = telemetry.records()
+    (stage,) = [s for s in spans if s.name == "chain.loudnorm"]
+    kids = [s for s in spans if s.name.startswith("loudness.")]
+    assert [s.name for s in sorted(kids, key=lambda s: s.t0)] == LOUDNESS
+    assert all(s.parent == stage.id for s in kids)
+    assert kids == sorted(kids, key=lambda s: s.t1)
+    assert (float(info["input_lra"]) > 0.0) == (seconds > 3.0)
+
+
+def test_loudness_spans_off_record_nothing(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(autograd_profiler, "_is_profiler_enabled", True)
+    master_graph(torch.from_numpy(_signal()), SR, LOUD)
+    assert telemetry.records() == []
+    with telemetry.stage_timer("x", torch.device("cuda")) as span:
+        assert span is None
+
+
+def test_fused_replay_keeps_its_bits_under_tracing():
+    """``master_graph_fused`` (eager on the CPU, the formulation a card
+    captures) equals ``master_graph`` bit for bit, traced or not."""
+    from ame_tpu_torch.graph.chain import master_graph_fused
+    x = torch.from_numpy(_signal(2.0))
+    y0, i0 = master_graph(x, SR, LOUD)
+    for traced in (False, True):
+        with telemetry.tracing() if traced else contextlib.nullcontext():
+            y1, i1 = master_graph_fused(x, SR, LOUD)
+        assert torch.equal(y0, y1)
+        assert set(i0) == set(i1)
+        assert all(torch.equal(i0[k], i1[k]) for k in i0)
+
+
+class _Event:
+    def __init__(self, log, name):
+        self.log, self.name = log, name
+
+    def record(self, stream=None):
+        self.log.append(self.name)
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_a_card_span_brackets_its_work_with_an_event_pair(monkeypatch,
+                                                          capturing):
+    """On a CUDA device a recorded span records a start event before its
+    body and an end event after it, and hands them to the recorder; under
+    a stream capture it records none. No card here: the events and the
+    capture query are stand-ins."""
+    log = []
+
+    def event_pair(span, device):
+        span.events = ("ref", "start", "end")
+        return _Event(log, "start"), _Event(log, "end")
+
+    monkeypatch.setattr(telemetry, "event_pair", event_pair)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    with telemetry.tracing() as recorder:
+        with telemetry.stage_timer("card", torch.device("cuda")) as span:
+            log.append("body")
+    assert log == (["body"] if capturing else ["start", "body", "end"])
+    assert (span.events is None) == capturing
+    assert (span in recorder._pending) != capturing
