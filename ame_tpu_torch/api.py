@@ -35,7 +35,11 @@ on ``device``. Memory is logged at the reference's milestones
 
 Input is staged as int16 where the file is PCM16 (half the upload bytes)
 and converted on the device; the master is quantized to int16 on the device
-and fetched as int16 for 16-bit WAV/AIFF output.
+and fetched as int16 for 16-bit WAV/AIFF output. On a card both copies go
+through this thread's reused page-locked blocks (``io/staging``): the
+decode of a PCM16 WAV in ``master_file`` reads into one and the upload
+from it does not block; the int16 fetch copies into the other, which the
+encoder writes from. Other arrays upload from pageable memory.
 """
 
 from __future__ import annotations
@@ -80,10 +84,13 @@ def master_file(input_file: str, output_file: str,
 
 def _master_file(input_file, output_file, settings, status_callback,
                  progress_callback, device, shard_time) -> dict:
-    from ame_tpu_torch.io import read_audio
+    from ame_tpu_torch.io import read_audio, staging
 
     status_callback("Loading audio into device memory...")
-    audio, sr = read_audio(input_file, prefer_int16=True)
+    # a PCM16 WAV is read straight into this thread's page-locked block,
+    # which _master_array recognizes and uploads from
+    with staging.decoding_into(staging.pool(torch.device(device))):
+        audio, sr = read_audio(input_file, prefer_int16=True)
     return _master_array(audio, sr, output_file, settings, status_callback,
                          progress_callback, device, shard_time)
 
@@ -110,7 +117,7 @@ def _master_array(audio, sr, output_file, settings, status_callback,
     closes after this returns, so that it covers the release of the
     call's host and device buffers (the locals here)."""
     from ame_tpu_torch.graph.chain import master_graph
-    from ame_tpu_torch.io import force_stereo, write_audio
+    from ame_tpu_torch.io import force_stereo, staging, write_audio
     from ame_tpu_torch.ops.quantize import float_to_int16, int16_roundtrip
 
     if settings is None:
@@ -133,8 +140,11 @@ def _master_array(audio, sr, output_file, settings, status_callback,
     # first emission (engine:184-187) — never a different denominator
     progress_callback(0, total_steps)
 
+    pool = staging.pool(device)
     with stage_timer("api.upload"):
-        staged = torch.from_numpy(np.ascontiguousarray(audio)).to(device)
+        staged = pool.upload(audio, device) if pool is not None else None
+        if staged is None:
+            staged = torch.from_numpy(np.ascontiguousarray(audio)).to(device)
         if audio.dtype == np.int16:
             x = staged.to(torch.float32) * (1.0 / 32768.0)
         else:
@@ -174,7 +184,8 @@ def _master_array(audio, sr, output_file, settings, status_callback,
     # the fetch waits for the chain's queued device work
     with stage_timer("api.fetch"):
         if int16_out:
-            pcm = float_to_int16(y).to(torch.int16).cpu().numpy()
+            q = float_to_int16(y).to(torch.int16)
+            pcm = pool.fetch(q) if pool is not None else q.cpu().numpy()
         else:
             pcm = y.cpu().numpy()
     write_audio(output_file, pcm, sr, bits=16 if int16_out else settings.bits)

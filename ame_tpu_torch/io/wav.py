@@ -15,6 +15,9 @@ one raw array it converts; encode writes the array's own memory when it is
 already in the file's sample type and byte order, and one converted array
 otherwise. Every sample-sized host array the codec allocates is counted in
 the open span's ``host_bytes`` (``utils.telemetry.note_host_bytes``).
+Inside a ``staging.decoding_into`` scope a PCM16 decode with
+``prefer_int16`` reads into the scope's page-locked block instead, which
+the staging counts.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import struct
 
 import numpy as np
 
+from ame_tpu_torch.io import staging
 from ame_tpu_torch.utils.telemetry import note_host_bytes
 
 _WAVE_FORMAT_PCM = 1
@@ -104,15 +108,20 @@ def _body(f, offset: int, n: int) -> bytes:
     return f.read(n)
 
 
-def _read_samples(f, offset: int, nbytes: int, dtype: str) -> np.ndarray:
+def _read_samples(f, offset: int, nbytes: int, dtype: str,
+                  staged: bool = False) -> np.ndarray:
     """``nbytes`` at ``offset`` read into a new 1-D ``dtype`` array of the
     whole samples read; ValueError where ``nbytes`` is no whole number of
-    samples, as ``np.frombuffer`` over the bytes raises."""
+    samples, as ``np.frombuffer`` over the bytes raises. ``staged``: into
+    the page-locked block of an open ``staging.decoding_into`` scope,
+    where there is one."""
     dt = np.dtype(dtype)
     if nbytes % dt.itemsize:
         raise ValueError("buffer size must be a multiple of element size")
-    x = _new(np.empty(nbytes // dt.itemsize, dt))
-    view = x.view(np.uint8)
+    view = staging.decode_buffer(nbytes) if staged else None
+    if view is None:
+        view = _new(np.empty(nbytes // dt.itemsize, dt)).view(np.uint8)
+    x = view.view(dt)
     f.seek(offset)
     got = 0
     while got < nbytes:            # short only at the end of the file
@@ -153,7 +162,7 @@ def read_wav(path: str, prefer_int16: bool = False):
             raise ValueError(f"{path}: missing fmt/data chunk")
         tag, channels, rate, bits = fmt
         if prefer_int16 and tag == _WAVE_FORMAT_PCM and bits == 16:
-            x = _read_samples(f, *data, "<i2")
+            x = _read_samples(f, *data, "<i2", staged=True)
         else:
             x = _decode_pcm(_read_samples(f, *data, "u1"), bits, tag)
     n = len(x) // channels
