@@ -1,11 +1,13 @@
-"""Page-locked host staging for the card's two copies of a track.
+"""How a track's samples cross between host memory and the device, for
+``api``: the decode's destination (``decode_destination``, passed as
+``io.read_audio(..., into=)``), the ``upload`` and the ``fetch``.
 
-On a CUDA device ``api.master_file`` decodes a PCM16 WAV straight into a
-page-locked host block and uploads from it without blocking, and
-``api`` fetches an int16 master into a second block, which
-``write_audio`` writes from. The card copies page-locked memory by DMA;
-from pageable memory CUDA copies through a staging buffer of its
-own, and a fresh ``.cpu()`` buffer faults its pages in during the copy.
+On a CUDA device a PCM16 WAV is decoded straight into a page-locked host
+block and uploaded from it without blocking, and an int16 master is
+fetched into a second block, which ``write_audio`` writes from. The card
+copies page-locked memory by DMA; from pageable memory CUDA copies through
+a staging buffer of its own, and a fresh ``.cpu()`` buffer faults its
+pages in during the copy.
 
 A ``Pool`` holds one block a direction, ``"in"`` (decode, then upload)
 and ``"out"`` (fetch, then encode), and ``pool`` keeps one a thread and
@@ -16,23 +18,19 @@ block the pool makes is counted in the open span's ``host_bytes``
 ``"in"`` block is not written again until the last upload from it has
 completed, which an event marks, also after a call that raised before it
 waited for its device work.
-
-``decoding_into(pool)`` is the private scope in which this thread's PCM16
-decode with ``prefer_int16`` (``io/wav.read_wav``) reads its samples into
-the pool's ``"in"`` block (``decode_buffer``) instead of a new array.
 """
 
 from __future__ import annotations
 
-import contextlib
 import threading
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ame_tpu_torch.utils.telemetry import note_host_bytes
 
-_local = threading.local()   # .pools: {device: Pool}; .decode: Pool or None
+_local = threading.local()   # .pools: {device: Pool}
 
 
 def _pinned(nbytes: int) -> torch.Tensor:
@@ -66,8 +64,8 @@ class Pool:
                device: torch.device) -> torch.Tensor | None:
         """``audio`` on ``device``, copied without blocking from the
         ``"in"`` block where it is the block's int16 samples from its start
-        (a decode inside ``decoding_into``); the block stays unwritten until
-        the copy is done. None for any other array."""
+        (a decode into ``decode_destination``); the block stays unwritten
+        until the copy is done. None for any other array."""
         b = self._blocks.get("in")
         if (b is None or audio.dtype != np.int16
                 or not audio.flags.c_contiguous
@@ -100,26 +98,32 @@ def pool(device: torch.device) -> Pool | None:
     pools = getattr(_local, "pools", None)
     if pools is None:
         pools = _local.pools = {}
-    p = pools.get(device)
-    if p is None:
-        p = pools[device] = Pool()
-    return p
+    if device not in pools:
+        pools[device] = Pool()
+    return pools[device]
 
 
-@contextlib.contextmanager
-def decoding_into(p: Pool | None):
-    """Inside the block, this thread's PCM16 decode with ``prefer_int16``
-    reads into ``p``'s ``"in"`` block; with ``p`` None, nothing changes."""
-    prev = getattr(_local, "decode", None)
-    _local.decode = p
-    try:
-        yield
-    finally:
-        _local.decode = prev
+def decode_destination(device: torch.device) -> Callable | None:
+    """Where a decode for ``device`` reads its samples: ``nbytes`` -> a
+    writable uint8 array over this thread's ``"in"`` block, which
+    ``upload`` copies from; None where ``device`` has no pool."""
+    p = pool(device)
+    return None if p is None else lambda n: p.block("in", n).numpy()
 
 
-def decode_buffer(nbytes: int) -> np.ndarray | None:
-    """A writable uint8 array of ``nbytes`` over the open scope's ``"in"``
-    block; None outside a ``decoding_into`` scope."""
-    p = getattr(_local, "decode", None)
-    return None if p is None else p.block("in", nbytes).numpy()
+def upload(audio: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``audio`` on ``device``: from the ``"in"`` block without blocking
+    where ``audio`` is the block's samples, else from pageable memory."""
+    p = pool(device)
+    t = p.upload(audio, device) if p is not None else None
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(audio)).to(device)
+    return t
+
+
+def fetch(t: torch.Tensor, device: torch.device) -> np.ndarray:
+    """``t``'s values on the host after the device work queued before it:
+    an int16 ``t`` in the ``"out"`` block where ``device`` has a pool (valid
+    until this thread's next fetch there), else in a new array."""
+    p = pool(device) if t.dtype == torch.int16 else None
+    return p.fetch(t) if p is not None else t.cpu().numpy()

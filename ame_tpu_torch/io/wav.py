@@ -15,9 +15,9 @@ one raw array it converts; encode writes the array's own memory when it is
 already in the file's sample type and byte order, and one converted array
 otherwise. Every sample-sized host array the codec allocates is counted in
 the open span's ``host_bytes`` (``utils.telemetry.note_host_bytes``).
-Inside a ``staging.decoding_into`` scope a PCM16 decode with
-``prefer_int16`` reads into the scope's page-locked block instead, which
-the staging counts.
+Where the caller passes ``into`` (``read_wav``), a PCM16 decode with
+``prefer_int16`` reads into the array ``into(nbytes)`` gives instead,
+which the caller counts.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ import struct
 
 import numpy as np
 
-from ame_tpu_torch.io import staging
 from ame_tpu_torch.utils.telemetry import note_host_bytes
 
 _WAVE_FORMAT_PCM = 1
@@ -109,18 +108,16 @@ def _body(f, offset: int, n: int) -> bytes:
 
 
 def _read_samples(f, offset: int, nbytes: int, dtype: str,
-                  staged: bool = False) -> np.ndarray:
+                  into=None) -> np.ndarray:
     """``nbytes`` at ``offset`` read into a new 1-D ``dtype`` array of the
     whole samples read; ValueError where ``nbytes`` is no whole number of
-    samples, as ``np.frombuffer`` over the bytes raises. ``staged``: into
-    the page-locked block of an open ``staging.decoding_into`` scope,
-    where there is one."""
+    samples, as ``np.frombuffer`` over the bytes raises. ``into``: read
+    into ``into(nbytes)``, a writable uint8 array, instead."""
     dt = np.dtype(dtype)
     if nbytes % dt.itemsize:
         raise ValueError("buffer size must be a multiple of element size")
-    view = staging.decode_buffer(nbytes) if staged else None
-    if view is None:
-        view = _new(np.empty(nbytes // dt.itemsize, dt)).view(np.uint8)
+    view = (into(nbytes) if into is not None
+            else _new(np.empty(nbytes // dt.itemsize, dt)).view(np.uint8))
     x = view.view(dt)
     f.seek(offset)
     got = 0
@@ -132,12 +129,13 @@ def _read_samples(f, offset: int, nbytes: int, dtype: str,
     return x[:got // dt.itemsize]
 
 
-def read_wav(path: str, prefer_int16: bool = False):
+def read_wav(path: str, prefer_int16: bool = False, *, into=None):
     """Returns (audio [N, C], sample_rate int).
 
     ``prefer_int16``: for PCM16 files, return the raw int16 samples instead
     of converting to float32 — the pipeline uploads int16 and converts on
-    the device. Non-PCM16 files still return float32.
+    the device; ``into``, where given, makes the array they are read into
+    (``nbytes`` -> writable uint8). Non-PCM16 files still return float32.
 
     The array is the caller's own: writable, C-contiguous, and backed by
     memory the size of the sample chunk, not of the file."""
@@ -162,7 +160,7 @@ def read_wav(path: str, prefer_int16: bool = False):
             raise ValueError(f"{path}: missing fmt/data chunk")
         tag, channels, rate, bits = fmt
         if prefer_int16 and tag == _WAVE_FORMAT_PCM and bits == 16:
-            x = _read_samples(f, *data, "<i2", staged=True)
+            x = _read_samples(f, *data, "<i2", into=into)
         else:
             x = _decode_pcm(_read_samples(f, *data, "u1"), bits, tag)
     n = len(x) // channels

@@ -1,11 +1,12 @@
 """The port's host staging (``ame_tpu_torch/io/staging.py``) on the CPU,
 with a plain CPU allocator standing in for page-locking: the PCM16
-decode inside a ``decoding_into`` scope reads into the pool's block with
-the bits of a plain decode; other files, other threads and a closed scope
-keep today's allocation; the pool grows to powers of two, reuses its
-blocks and counts ``host_bytes`` only when it makes one; and
-``master_file`` writes the same bytes whether its copies go through a pool
-or not."""
+decode given the pool's destination (``read_audio(..., into=)``) reads
+into the pool's block with the bits of a plain decode; other files and a
+decode given no destination keep today's allocation; the pool grows to
+powers of two, reuses its blocks and counts ``host_bytes`` only when it
+makes one; and ``master_file`` writes the same bytes whether its copies
+go through a pool or not, and calls the functions the benchmark wraps
+through their modules, once each."""
 
 import struct
 import threading
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+import ame_tpu_torch.io
 from ame_tpu_torch import api
+from ame_tpu_torch.graph import chain
 from ame_tpu_torch.graph.chain import master_graph
 from ame_tpu_torch.io import read_audio, staging, write_audio
 from ame_tpu_torch.ops.quantize import float_to_int16
@@ -49,6 +52,13 @@ def _pool():
 CPU = torch.device("cpu")
 
 
+def _destination(pool, monkeypatch):
+    """The decode destination ``staging`` gives for the CPU device, with
+    ``pool`` injected as the CPU's."""
+    monkeypatch.setattr(staging, "pool", lambda device: pool)
+    return staging.decode_destination(CPU)
+
+
 def _in_block(pool, a) -> bool:
     """Whether the pool uploads ``a`` from its block (on the CPU the upload
     is the block's own tensor)."""
@@ -78,10 +88,16 @@ def _pcm16(frames=FRAMES, channels=2, seed=0) -> bytes:
         "<i2").tobytes()
 
 
+# the name a case is read under where it is not ``a.wav``: a PCM16 WAV
+# under another extension is found by its RIFF magic
+NAMES = {"riff_magic": "a.dat"}
+
+
 def _pcm16_files():
     data = _pcm16()
     return {
         "plain": _riff(_fmt(1, 2, 16), _chunk(b"data", data)),
+        "riff_magic": _riff(_fmt(1, 2, 16), _chunk(b"data", data)),
         "list_before_and_after": _riff(
             _chunk(b"LIST", b"\x01" * 26), _fmt(1, 2, 16),
             _chunk(b"data", data), _chunk(b"LIST", b"\x02" * 40)),
@@ -94,13 +110,13 @@ def _pcm16_files():
 
 
 @pytest.mark.parametrize("case", sorted(_pcm16_files()))
-def test_staged_decode_reads_into_the_block(case, tmp_path):
-    path = tmp_path / "a.wav"
+def test_staged_decode_reads_into_the_block(case, tmp_path, monkeypatch):
+    path = tmp_path / NAMES.get(case, "a.wav")
     path.write_bytes(_pcm16_files()[case])
     want, want_sr = read_audio(str(path), prefer_int16=True)
     pool, alloc = _pool()
-    with staging.decoding_into(pool):
-        got, sr = read_audio(str(path), prefer_int16=True)
+    into = _destination(pool, monkeypatch)
+    got, sr = read_audio(str(path), prefer_int16=True, into=into)
     assert sr == want_sr and got.dtype == np.int16
     np.testing.assert_array_equal(got, want)
     # the samples are the block's, from its start
@@ -111,8 +127,10 @@ def test_staged_decode_reads_into_the_block(case, tmp_path):
 @pytest.mark.parametrize("tag,bits,prefer", [(1, 16, False), (1, 24, True),
                                              (1, 8, True), (3, 32, True)])
 def test_other_files_in_the_scope_take_their_own_arrays(tag, bits, prefer,
-                                                        tmp_path):
-    """Only PCM16 read with ``prefer_int16`` is staged."""
+                                                        tmp_path,
+                                                        monkeypatch):
+    """Only PCM16 read with ``prefer_int16`` is staged: every other read
+    ignores the destination it is given."""
     n = FRAMES * 2 * bits // 8
     body = np.random.default_rng(1).integers(0, 256, n).astype(np.uint8)
     if tag == 3:
@@ -123,45 +141,49 @@ def test_other_files_in_the_scope_take_their_own_arrays(tag, bits, prefer,
                                                       body.tobytes())))
     want, _ = read_audio(str(path), prefer_int16=prefer)
     pool, alloc = _pool()
-    with staging.decoding_into(pool):
-        got, _ = read_audio(str(path), prefer_int16=prefer)
+    got, _ = read_audio(str(path), prefer_int16=prefer,
+                        into=_destination(pool, monkeypatch))
     np.testing.assert_array_equal(got, want)
     assert alloc.sizes == [] and pool.upload(got, CPU) is None
 
 
-def test_the_scope_is_the_threads_own(tmp_path):
+def test_a_decode_given_no_destination_takes_its_own_array(tmp_path,
+                                                           monkeypatch):
+    """The pool of this thread exists, and a destination was taken from
+    it: a decode not given it allocates its own array, and no block."""
     path = tmp_path / "a.wav"
     path.write_bytes(_pcm16_files()["plain"])
     pool, alloc = _pool()
-    other = {}
-
-    def read():
-        other["x"], _ = read_audio(str(path), prefer_int16=True)
-
-    with staging.decoding_into(pool):
-        t = threading.Thread(target=read)
-        t.start()
-        t.join(timeout=30)
-        assert not t.is_alive()
-    assert alloc.sizes == [] and pool.upload(other["x"], CPU) is None
-    np.testing.assert_array_equal(other["x"],
-                                  read_audio(str(path), True)[0])
+    _destination(pool, monkeypatch)
+    got, _ = read_audio(str(path), prefer_int16=True)
+    assert alloc.sizes == [] and pool.upload(got, CPU) is None
+    np.testing.assert_array_equal(
+        got, np.frombuffer(_pcm16(), "<i2").reshape(FRAMES, 2))
 
 
-def test_the_scope_closes_on_an_exception(tmp_path):
+@pytest.mark.parametrize("case,error", [
+    # a data chunk of no whole number of samples: raised before the read
+    ("odd_data", ValueError),
+    # no channels: raised after the samples landed in the block
+    ("no_channels", ZeroDivisionError)])
+def test_a_decode_that_raised_leaves_the_next_one_right(case, error, tmp_path,
+                                                        monkeypatch):
+    data = _pcm16()
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes({
+        "odd_data": _riff(_fmt(1, 2, 16), _chunk(b"data", data[:-1])),
+        "no_channels": _riff(_fmt(1, 0, 16), _chunk(b"data", data[::-1])),
+    }[case])
     path = tmp_path / "a.wav"
     path.write_bytes(_pcm16_files()["plain"])
-    outer, outer_alloc = _pool()
-    inner, inner_alloc = _pool()
-    with staging.decoding_into(outer):
-        with pytest.raises(KeyError):
-            with staging.decoding_into(inner):
-                raise KeyError("boom")
-        x, _ = read_audio(str(path), prefer_int16=True)   # the outer's
-    y, _ = read_audio(str(path), prefer_int16=True)       # no scope
-    assert inner_alloc.sizes == [] and len(outer_alloc.sizes) == 1
-    assert _in_block(outer, x) and not _in_block(outer, y)
-    assert staging.decode_buffer(16) is None
+    want, _ = read_audio(str(path), prefer_int16=True)
+    pool, alloc = _pool()
+    into = _destination(pool, monkeypatch)
+    with pytest.raises(error):
+        read_audio(str(bad), prefer_int16=True, into=into)
+    got, _ = read_audio(str(path), prefer_int16=True, into=into)
+    np.testing.assert_array_equal(got, want)
+    assert _in_block(pool, got) and len(alloc.sizes) == 1
 
 
 def test_the_pool_grows_to_powers_of_two_and_counts_only_growth():
@@ -292,3 +314,26 @@ def test_master_array_and_float_outputs_bypass_the_blocks(tmp_path,
     api.master_array(audio, SR, str(tmp_path / "o24.wav"),
                      dict(SETTINGS, bits=24), device="cpu")
     assert alloc.sizes == [32768]
+
+
+@pytest.mark.parametrize("pooled", [False, True], ids=["pageable", "pool"])
+def test_master_file_calls_the_wrapped_functions_once_each(pooled, tmp_path,
+                                                           monkeypatch):
+    """The benchmark's decode, write and chain spans wrap
+    ``ame_tpu_torch.io.read_audio``, ``ame_tpu_torch.io.write_audio`` and
+    ``ame_tpu_torch.graph.chain.master_graph`` by replacing those module
+    attributes: ``master_file`` must look each up there, once a call."""
+    if pooled:
+        pool, _ = _pool()
+        monkeypatch.setattr(staging, "pool", lambda device: pool)
+    path = _track(tmp_path, "a.wav", 5000, 0)
+    calls = []
+    for mod, name in ((ame_tpu_torch.io, "read_audio"),
+                      (ame_tpu_torch.io, "write_audio"),
+                      (chain, "master_graph")):
+        def counted(*args, _fn=getattr(mod, name), _name=name, **kwargs):
+            calls.append(_name)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counted)
+    api.master_file(path, str(tmp_path / "out.wav"), SETTINGS, device="cpu")
+    assert calls == ["read_audio", "master_graph", "write_audio"]
