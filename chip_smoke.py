@@ -9,8 +9,8 @@ failure raises and the script exits non-zero without the final line:
 
   1. device: the card's name and nvidia-smi's name / power limit line;
   2. build: compiles ame_tpu_torch/csrc/{cascade_scan,wedge_env,pydub_gain,
-     sos_grad,graph_if}.cu from the checkout, one nvcc each, all started
-     together;
+     sos_grad,graph_if,lookahead_limiter}.cu from the checkout, one nvcc
+     each, all started together;
      prints each
      kernel's registers and spills, and the opcodes in the hot loop of
      gain_p1's walker and of its floor kernel (cuobjdump -sass);
@@ -45,7 +45,13 @@ failure raises and the script exits non-zero without the final line:
   7. the wedge envelope (K1) vs its plain 12-scan form on the card, both
      directions, on the compat depths of [2^23 + 1234, 2] noise at 0.5
      (envelope within 1e-5, limited output within 1/32768); its time and
-     its split over its three launches (torch.profiler);
+     its split over its three launches (torch.profiler); then the quality
+     limiter's kernel (csrc/lookahead_limiter.cu) vs its plain version on
+     the card at [2^23 + 1234, 2] and at the benchmark cells' mean track
+     [9 702 000, 2], on gated noise and a 100 Hz tone with clicks that
+     pull the gain to ~0.1 (gain within 1e-5, y within 1e-5 per unit of
+     |x|), its time (10 calls in a row, one alone), the plain version's
+     and its bound;
   8. compat main path: master_file (mode="compat", multiband) on a 2^23
      gated noise + 100 Hz WAV that takes every band over its threshold;
      K1 must launch twice, K5 seven times, K2 at least once and K3 / K4
@@ -298,7 +304,7 @@ Run alone, without the repository's ame_tpu_torch package beside it, the
 script stops after phase 1 with a non-zero exit and prints no result.
 
 ``python3 chip_smoke.py --kernel-times [ROOT]`` runs phase 3, K1's check
-and times, K2's sweep times, K3's check, time and floor and K4's checks
+and times, the quality limiter's (phase 7), K2's sweep times, K3's check, time and floor and K4's checks
 and times (with the copy yardstick) at [3, 2^23], K4 at [3, 2^23 + 1234],
 K2's reset route (f), sos_grad at [2^23 + 1234, 2] (13 (b)'s check and
 times), the device chains (quality, compat, compat fallback, compat
@@ -347,11 +353,13 @@ N_KERNEL = (1 << 23) + 1234       # ragged: not a multiple of the kernel block
 N_MAIN = 1 << 23                  # 3:10 at 44.1 kHz
 N_PARITY = 1 << 20
 N_GAIN_PLAIN = 1 << 17            # the plain sequential walk's length
+N_MEAN_TRACK = 9_702_000          # the benchmark cells' mean track, 220 s
 FLAGSHIP = dict(analog_character=20.0, bass_boost=2.0, presence_boost=1.5,
                 width=1.2, lufs=-14.0)
 COMPAT = dict(FLAGSHIP, mode="compat", multiband=True)
 KERNEL_TOL = 1e-4     # tests/test_pallas_scan.py holds K5 to 1e-4
 WEDGE_TOL = 1e-5
+LIMITER_TOL = 1e-5    # gain; y per unit of |x| (the plain release is f32)
 LSB = 1.0 / 32768.0
 PARITY_TOL = 2e-4
 GAIN_TOL_DB = 0.01
@@ -438,7 +446,21 @@ def _counters():
         out["sos_grad"] = sos_grad_cuda
     except ImportError:
         pass
+    from ame_tpu_torch.ops import limiter
+    if hasattr(limiter, "lookahead_limiter_cuda"):   # a tree with the kernel
+        out["lookahead_limiter"] = limiter.lookahead_limiter_cuda
     return out
+
+
+def _quality_launches_ok(counts: dict, masters: int = 1,
+                         k5: int = 3) -> bool:
+    """K5 ``k5`` launches a quality master, the limiter's kernel one (where
+    the package has it), and nothing else."""
+    want = {"cascade_scan": k5 * masters}
+    if "lookahead_limiter" in counts:
+        want["lookahead_limiter"] = masters
+    return all(counts[k] == v for k, v in want.items()) and not any(
+        v for k, v in counts.items() if k not in want)
 
 
 def _reset_counters() -> dict:
@@ -488,7 +510,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     from ame_tpu_torch.ops import _build
     names = tuple(n for n in ("cascade_scan", "wedge_env", "pydub_gain",
-                              "sos_grad", "graph_if")
+                              "sos_grad", "graph_if", "lookahead_limiter")
                   if (_build._CSRC / f"{n}.cu").exists())
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(_build.build, names))
@@ -855,9 +877,9 @@ def phase_main(tmp: str) -> dict:
     info = master_file(src, dst, settings, device="cuda")
     counts = _read_counts()
     launches = sosfilt_cuda.launches
-    if launches != 3:
-        raise AssertionError(f"main path made {launches} kernel launches, "
-                             f"expected 3")
+    if not _quality_launches_ok(counts):
+        raise AssertionError(f"main path made {counts} kernel launches, "
+                             f"expected 3 K5 and the limiter's kernel once")
 
     out, sr = read_wav(dst)
     if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
@@ -982,6 +1004,73 @@ def phase_wedge() -> dict:
     if not err_y <= LSB:
         raise AssertionError(f"limited output differs by {err_y} > 1/32768")
     return {**k1, "max_abs_err": max(k1["max_abs_err"], err_y)}
+
+
+def _limiter_input(n: int, seed: int) -> torch.Tensor:
+    """[n, 2] on the card: gated noise and a 100 Hz tone (the benchmark
+    cells' content) with clicks six times as loud, which pull the
+    limiter's gain to ~0.1."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SR
+    x = (0.25 * rng.standard_normal((n, 2))
+         + 0.3 * np.sin(2 * np.pi * 100 * t)[:, None])
+    x[(np.floor(t / 1.7) % 2) == 1] = 0.0
+    for at in rng.integers(0, n, max(n // 100_000, 1)):
+        x[at:at + 30] *= 6.0
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def phase_limiter() -> dict:
+    """The quality limiter's kernel against its plain version on the card
+    at [2^23 + 1234, 2] and the cells' mean track (gain within
+    LIMITER_TOL, y within LIMITER_TOL per unit of |x|), then timed: 10
+    calls in a row and one alone, the plain version, and the bound (x
+    read and y written once). A tree without the kernel (an older one)
+    runs and times only its plain limiter, as its chain ran it."""
+    from ame_tpu_torch.ops import limiter
+    w = int(5.0 * SR / 1000.0)
+    rho = math.exp(-1.0 / (50.0 * SR / 1000.0))
+    kernel = getattr(limiter, "lookahead_limiter_cuda", None)
+    rows = []
+    for n in (N_KERNEL, N_MEAN_TRACK):
+        x = _limiter_input(n, seed=n)
+        bound = _bound(2 * x.numel() * 4, 0)
+        row = {"n": n, "bound": bound}
+        if kernel is None:
+            row["plain_ms"] = _cuda_ms(lambda: limiter.lookahead_limiter(
+                x, SR))
+            print(f"lookahead_limiter [{n}, 2]: plain {row['plain_ms']:.4f} "
+                  f"ms (this tree has no kernel)")
+            rows.append(row)
+            continue
+        y, g = kernel(x, w, rho, 0.98, True)
+        y_p, g_p = limiter.lookahead_limiter_plain(x, w, rho, 0.98, True)
+        row["max_abs_err_gain"] = (g - g_p).abs().max().item()
+        row["max_abs_err_y"] = (y - y_p).abs().max().item()
+        row["max_abs_x"] = x.abs().max().item()
+        row["min_gain"] = g.min().item()
+        if not (row["max_abs_err_gain"] <= LIMITER_TOL
+                and row["max_abs_err_y"]
+                <= LIMITER_TOL * max(1.0, row["max_abs_x"])):
+            raise AssertionError(f"lookahead_limiter vs plain at [{n}, 2]: "
+                                 f"{row}")
+        row["ms"] = _cuda_ms(lambda: kernel(x, w, rho), KERNEL_CALLS)
+        row["one_call_ms"] = _cuda_ms(lambda: kernel(x, w, rho))
+        row["plain_ms"] = _cuda_ms(
+            lambda: limiter.lookahead_limiter_plain(x, w, rho))
+        print(f"lookahead_limiter [{n}, 2]: |gain| err "
+              f"{row['max_abs_err_gain']:.3e}, |y| err "
+              f"{row['max_abs_err_y']:.3e} (|x| <= {row['max_abs_x']:.2f}, "
+              f"gain >= {row['min_gain']:.3f}); kernel {row['ms']:.4f} ms "
+              f"({bound[0] / row['ms']:.1%} of its bound {bound[0]:.4f} ms; "
+              f"one call alone {row['one_call_ms']:.4f} ms), plain "
+              f"{row['plain_ms']:.4f} ms")
+        rows.append(row)
+    if kernel is None:
+        return {"rows": rows}
+    return {"rows": rows, "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            "bound": rows[0]["bound"],
+            "max_abs_err": max(r["max_abs_err_gain"] for r in rows)}
 
 
 def _gain_bounds(G: int, n: int):
@@ -1746,8 +1835,7 @@ def phase_quality_mb(tmp: str) -> dict:
     want = 3 + _mb_launches(None)
     print(f"quality_mb path launches: {json.dumps(counts)} (K5 expected "
           f"{want})")
-    if counts["cascade_scan"] != want or any(
-            v for k, v in counts.items() if k != "cascade_scan"):
+    if not _quality_launches_ok(counts, k5=want):
         raise AssertionError(f"quality_mb launches {counts}")
     out, sr = read_wav(dst)
     if sr != SR or out.shape != (N_MAIN, 2) or not np.isfinite(out).all():
@@ -3182,12 +3270,12 @@ def _out_lufs(pcm: np.ndarray, sr: int) -> float:
 
 
 def _check_quality(r: dict) -> float:
-    """K5 exactly 3 launches and nothing else; -14 LUFS within 0.5 LU."""
-    others = {k: v for k, v in r["counts"].items()
-              if k != "cascade_scan" and v}
-    if r["counts"]["cascade_scan"] != 3 or others:
+    """K5 exactly 3 launches, the limiter's kernel one and nothing else;
+    -14 LUFS within 0.5 LU."""
+    if not _quality_launches_ok(r["counts"]):
         raise AssertionError(f"served {r['label']}: launches {r['counts']}, "
-                             f"expected 3 cascade_scan and nothing else")
+                             f"expected 3 cascade_scan, 1 lookahead_limiter "
+                             f"and nothing else")
     out_i = _out_lufs(r["pcm"], r["sr"])
     if abs(out_i + 14.0) > LUFS_TOL:
         raise AssertionError(f"served {r['label']} measures {out_i} LUFS")
@@ -3514,11 +3602,10 @@ def _gui(tmp: str, src: str) -> dict:
     api.master_file(src, ref, FLAGSHIP, device="cuda")
     lsb = _lsb(read_wav(out, prefer_int16=True)[0],
                read_wav(ref, prefer_int16=True)[0])
-    others = {k: v for k, v in counts.items() if k != "cascade_scan" and v}
     if (sum(s.startswith("Success:") for s in statuses) != 1
             or any(s.startswith(("Error:", "Failed:")) for s in statuses)
             or progress[-1][0] != progress[-1][1] or len(infos) != 1
-            or counts["cascade_scan"] != 3 or others or lsb > 1):
+            or not _quality_launches_ok(counts) or lsb > 1):
         raise AssertionError(f"GUI job: statuses {statuses}, progress "
                              f"{progress[-3:]}, dialogs {infos}, launches "
                              f"{counts}, vs master_file {lsb} LSB")
@@ -3635,8 +3722,7 @@ def _fleet(tmp: str, src: str, compat_src: str) -> dict:
                   and counts["gain_jacobi"] >= 1 and not counts["gain_p1"]
                   and not counts["gain_p2"])
         else:
-            ok = counts["cascade_scan"] == 3 and not any(
-                v for k, v in counts.items() if k != "cascade_scan")
+            ok = _quality_launches_ok(counts)
         if not ok:
             raise AssertionError(f"fleet {name}: launches {counts}")
         ref = os.path.join(tmp, f"fleet_ref_{name}.wav")
@@ -3687,8 +3773,7 @@ def _batch(src: str, device_chain_ms: float) -> dict:
     _zero_counts()
     ys = master_batch(xs, SR, FLAGSHIP)
     counts = _read_counts()
-    others = {k: v for k, v in counts.items() if k != "cascade_scan" and v}
-    if counts["cascade_scan"] != 3 * BATCH or others:
+    if not _quality_launches_ok(counts, BATCH):
         raise AssertionError(f"master_batch launches {counts}")
     settings = MasterSettings(**FLAGSHIP)
     errs = []
@@ -4794,7 +4879,9 @@ def kernel_times(root: str) -> int:
     (checked against plain, timed, split by launch) and, where the package
     has chunked compat, on the chunk columns [1 323 000, 14] and the
     quality multiband cascades; K1 in both
-    directions (checked, timed, split by launch); K2's carry and full
+    directions (checked, timed, split by launch); the quality limiter's
+    kernel (checked and timed beside its plain version; a tree without it
+    times its plain limiter); K2's carry and full
     sweeps and K3 (checked bit for bit against the full sweep's states,
     timed, with its floor when the library has one) and K4 (from K3's
     starts, checked and timed beside a device copy of m) on the compat
@@ -4823,6 +4910,7 @@ def kernel_times(root: str) -> int:
         cascades["quality_multiband"] = phase_cascades_mb()
     wedge =_wedge_kernel(_wedge_input()[1])
     del wedge["env_p"]
+    lim = phase_limiter()
     with tempfile.TemporaryDirectory() as tmp:
         x_compat = _compat_x(tmp)[2]
         x_steady = _steady_x(tmp)[1]
@@ -4876,6 +4964,7 @@ def kernel_times(root: str) -> int:
         "package": os.path.dirname(ame_tpu_torch.__file__),
         "cascade_scan": cascades, "wedge_env": wedge, "gain_jacobi": sweeps,
         "gain_p1": p1, "gain_p2": p2, "sos_grad": sos_grad,
+        "lookahead_limiter": lim,
         "chains": chains, "musicologist": analysis}}))
     return 0
 
@@ -5031,6 +5120,7 @@ def main() -> int:
         mb = phase_quality_mb(tmp)
         phase_quality_mb_parity()
         wedge = phase_wedge()
+        lim = phase_limiter()
         compat = phase_compat_main(tmp)
         chunked = phase_compat_chunked(tmp)
         chunked_fb = phase_compat_chunked_fallback(tmp)
@@ -5089,7 +5179,8 @@ def main() -> int:
               **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": paths[path][name],
-                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "launches_by_path": {p: c.get(name)
+                                     for p, c in paths.items()},
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "bound_share": bound[0] / ms, "library_ms": None, **extra}
@@ -5131,6 +5222,10 @@ def main() -> int:
               n=N_KERNEL, note="both directions",
               one_call_ms=wedge["one_call_ms"], phase_ms=wedge["phase_ms"],
               streaming_reverse=stream["k1"]),
+        entry("lookahead_limiter", csrc + "lookahead_limiter.cu",
+              "none: ame_tpu/ops/limiter.py:40 _limiter_jit is plain jnp",
+              "quality", lim["max_abs_err"], lim["ms"], lim["plain_ms"],
+              lim["bound"], n=N_KERNEL, rows=lim["rows"]),
     ]
     reset = gain["reset"]
     for name, line in (("gain_jacobi", 307), ("gain_p1", 140),
