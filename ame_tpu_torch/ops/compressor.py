@@ -34,6 +34,7 @@ import torch
 from ame_tpu_torch.ops import window as W
 from ame_tpu_torch.ops.pydub_gain import pydub_gain_chunked, pydub_gain_multi
 from ame_tpu_torch.ops.scan_iir import sosfilt
+from ame_tpu_torch.utils.telemetry import stage_timer
 
 
 def _f32(v: float) -> float:
@@ -252,22 +253,31 @@ def compress_quality_multi(bands, sample_rate: float, thresholds_db, ratios,
     Differentiable in the bands and in tensor thresholds and ratios: the
     level and the gain computer are torch ops, the release scan is a
     (max, x) Kogge-Stone in torch ops, and the smoother goes through
-    ``sosfilt`` (``SosfiltFn`` on the card)."""
+    ``sosfilt`` (``SosfiltFn`` on the card).
+
+    Each step is a span (``telemetry.stage_timer``, a device event pair on
+    a card): ``multiband.level``, ``multiband.release`` (the gain computer
+    and the scan), ``multiband.attack`` and ``multiband.apply`` (the gains
+    and the per-band products)."""
     G = len(bands)
     dt, dev = bands[0].dtype, bands[0].device
-    rms_w = max(int(rms_ms * sample_rate / 1000.0), 1)
-    sq = torch.stack([torch.mean(b * b, dim=1) for b in bands], dim=1)
-    level_db = 10.0 * torch.log10(torch.clamp(W.moving_mean_past(sq, rms_w),
-                                              min=1e-12))
-    th = torch.as_tensor(thresholds_db, dtype=dt, device=dev).reshape(1, G)
-    ra = torch.as_tensor(ratios, dtype=dt, device=dev).reshape(1, G)
-    gr_db = torch.clamp(level_db - th, min=0.0) * (1.0 - 1.0 / ra)
-    gr_rel = W.release_scan(
-        gr_db, math.exp(-1.0 / (release_ms * sample_rate / 1000.0)))
-    gr_smooth, _ = sosfilt(attack_sos(sample_rate, attack_ms),
-                           gr_rel.contiguous())
-    gains = 10.0 ** (-gr_smooth / 20.0)
-    return [bands[g] * gains[:, g:g + 1] for g in range(G)]
+    with stage_timer("multiband.level", dev):
+        rms_w = max(int(rms_ms * sample_rate / 1000.0), 1)
+        sq = torch.stack([torch.mean(b * b, dim=1) for b in bands], dim=1)
+        level_db = 10.0 * torch.log10(
+            torch.clamp(W.moving_mean_past(sq, rms_w), min=1e-12))
+    with stage_timer("multiband.release", dev):
+        th = torch.as_tensor(thresholds_db, dtype=dt, device=dev).reshape(1, G)
+        ra = torch.as_tensor(ratios, dtype=dt, device=dev).reshape(1, G)
+        gr_db = torch.clamp(level_db - th, min=0.0) * (1.0 - 1.0 / ra)
+        gr_rel = W.release_scan(
+            gr_db, math.exp(-1.0 / (release_ms * sample_rate / 1000.0)))
+    with stage_timer("multiband.attack", dev):
+        gr_smooth, _ = sosfilt(attack_sos(sample_rate, attack_ms),
+                               gr_rel.contiguous())
+    with stage_timer("multiband.apply", dev):
+        gains = 10.0 ** (-gr_smooth / 20.0)
+        return [bands[g] * gains[:, g:g + 1] for g in range(G)]
 
 
 def attack_sos(sample_rate: float, attack_ms: float) -> np.ndarray:

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ame_tpu_torch.ops._branch import hold
+from ame_tpu_torch.ops._count import bump
 
 
 def _pad_to_blocks(x: torch.Tensor, w: int, fill: float):
@@ -145,17 +146,26 @@ def release_scan(u: torch.Tensor, decay: float) -> torch.Tensor:
     Blocked Kogge-Stone with L = 128 blocks; the block-boundary carry
     c[b+1] = max(e[b], decay^L c[b]) is itself a (max, x) Kogge-Stone prefix
     over the [nb, ...] block ends. Decay powers are squared in float32 on
-    the host, as the reference squares its f32 decay."""
+    the host, as the reference squares its f32 decay.
+
+    ``release_scan.launches`` counts the device kernels a call enqueues
+    (each fill of a non-empty tensor, concatenation and elementwise op; the
+    same count on the CPU, where they run as host ops): 4 a sweep and up
+    to 11 more, so 107 at [9 702 000, 3] (7 sweeps in a block, 17 over the
+    blocks' ends). The count is a model of the ops below, not a hook on
+    the launches: it changes together with them."""
     n = u.shape[0]
     L = min(128, 1 << max(n - 1, 1).bit_length())
     nb = -(-n // L)
     pad = u.new_zeros((nb * L - n,) + u.shape[1:])
     Y = torch.cat([u, pad], dim=0).reshape((nb, L) + u.shape[1:])
+    launches = (nb * L > n) + 1               # the pad's fill, the cat
 
     dl = np.float32(decay)
     shift = 1
     while shift < L:
         Y = torch.maximum(Y, float(dl) * _shift_right_fill(Y, shift, 1))
+        launches += 4                 # the shift's fill and cat, mul, max
         dl = dl * dl
         shift *= 2
     dj = dl  # decay^L
@@ -164,9 +174,11 @@ def release_scan(u: torch.Tensor, decay: float) -> torch.Tensor:
     e = Y[:, -1]
     P = 1 << max(nb - 1, 1).bit_length() if nb > 1 else 1
     F_ = torch.cat([e, e.new_zeros((P - nb,) + e.shape[1:])], dim=0)
+    launches += (P > nb) + 1
     s = 1
     while s < P:
         F_ = torch.maximum(F_, float(dj) * _shift_right_fill(F_, s, 0))
+        launches += 4
         dj = dj * dj
         s *= 2
     Cpre = torch.cat([e.new_zeros((1,) + e.shape[1:]), F_[:nb - 1]], dim=0)
@@ -177,4 +189,9 @@ def release_scan(u: torch.Tensor, decay: float) -> torch.Tensor:
     corr = (powers.reshape((1, L) + (1,) * (u.ndim - 1))
             * Cpre.reshape((nb, 1) + u.shape[1:]))
     y = torch.maximum(Y, corr)
+    # Cpre's fill and cat; arange, mul, exp; the product, the maximum
+    bump(release_scan, n=launches + 7)
     return y.reshape((nb * L,) + u.shape[1:])[:n]
+
+
+release_scan.launches = 0
