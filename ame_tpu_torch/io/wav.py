@@ -17,21 +17,34 @@ otherwise. Every sample-sized host array the codec allocates is counted in
 the open span's ``host_bytes`` (``utils.telemetry.note_host_bytes``).
 Where the caller passes ``into`` (``read_wav``), a PCM16 decode with
 ``prefer_int16`` reads into the array ``into(nbytes)`` gives instead,
-which the caller counts.
+which the caller counts. A sample chunk of two ranges or more
+(``_RANGE_BYTES`` each) is read as that many contiguous positioned reads
+at once, the calling thread's and the process's shared reader threads'.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import threading
+from concurrent import futures
 
 import numpy as np
 
+from ame_tpu_torch.ops._count import bump
 from ame_tpu_torch.utils.telemetry import note_host_bytes
 
 _WAVE_FORMAT_PCM = 1
 _WAVE_FORMAT_IEEE_FLOAT = 3
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
+
+# A split read's ranges hold at least this many bytes each, and start at
+# multiples of _PAGE_BYTES inside the destination.
+_RANGE_BYTES = 4 << 20
+_PAGE_BYTES = 4096
+
+_readers = None   # (pid, executor or None, workers), made at first use
+_readers_lock = threading.Lock()
 
 
 def _new(a: np.ndarray) -> np.ndarray:
@@ -107,26 +120,100 @@ def _body(f, offset: int, n: int) -> bytes:
     return f.read(n)
 
 
+def _reader_pool():
+    """The process's reader threads, shared by every thread that decodes
+    (served workers, ``fleet``), and their number: one fewer than the
+    CPUs the process may use, at most 7; (None, 0) where that is 0 or the
+    platform has no positioned scatter read. Made again in a forked
+    child, which has none of its parent's threads."""
+    global _readers
+    with _readers_lock:
+        if _readers is None or _readers[0] != os.getpid():
+            n = (min(7, len(os.sched_getaffinity(0)) - 1)
+                 if hasattr(os, "preadv") else 0)
+            pool = (futures.ThreadPoolExecutor(
+                n, thread_name_prefix="ame-wav-read") if n > 0 else None)
+            _readers = (os.getpid(), pool, n)
+        return _readers[1], _readers[2]
+
+
+def _read_range(fd: int, view: np.ndarray, offset: int, a: int,
+                b: int) -> int:
+    """The file's bytes at ``offset + a`` read into ``view[a:b]``: the
+    count read, short only at the end of the file."""
+    got = a
+    while got < b:
+        n = os.preadv(fd, [view[got:b]], offset + got)
+        if not n:
+            break
+        got += n
+    return got - a
+
+
+def _read_split(fd: int, view: np.ndarray, offset: int, nbytes: int,
+                pool, t: int) -> int:
+    """``nbytes`` at ``offset`` read into ``view`` as ``t`` contiguous
+    ranges at once, the first on the calling thread and the rest on
+    ``pool``: the bytes of the prefix read from the start, up to the first
+    range that came back short. Returns, or raises the first range's
+    error, only once no range is still writing into ``view``."""
+    step = -(-nbytes // t)
+    step = -(-step // _PAGE_BYTES) * _PAGE_BYTES
+    edges = [min(i * step, nbytes) for i in range(t + 1)]
+    jobs = []
+    try:
+        for a, b in zip(edges[1:-1], edges[2:]):
+            jobs.append(pool.submit(_read_range, fd, view, offset, a, b))
+        counts = [_read_range(fd, view, offset, edges[0], edges[1])]
+    finally:
+        futures.wait(jobs)
+    counts += [j.result() for j in jobs]
+    bump(_read_samples, "split_reads")
+    bump(_read_samples, "ranges", t)
+    got = 0
+    for a, b, n in zip(edges, edges[1:], counts):
+        got += n
+        if n < b - a:
+            break
+    return got
+
+
 def _read_samples(f, offset: int, nbytes: int, dtype: str,
                   into=None) -> np.ndarray:
     """``nbytes`` at ``offset`` read into a new 1-D ``dtype`` array of the
     whole samples read; ValueError where ``nbytes`` is no whole number of
     samples, as ``np.frombuffer`` over the bytes raises. ``into``: read
-    into ``into(nbytes)``, a writable uint8 array, instead."""
+    into ``into(nbytes)``, a writable uint8 array, instead.
+
+    From 2 ``_RANGE_BYTES`` on, the bytes are read as ranges at once, as
+    many as fit, up to one more than the reader threads (``_read_split``);
+    below that, or without reader threads, in one sequential read.
+    ``_read_samples.split_reads`` counts the reads split,
+    ``_read_samples.ranges`` their ranges."""
     dt = np.dtype(dtype)
     if nbytes % dt.itemsize:
         raise ValueError("buffer size must be a multiple of element size")
     view = (into(nbytes) if into is not None
             else _new(np.empty(nbytes // dt.itemsize, dt)).view(np.uint8))
     x = view.view(dt)
-    f.seek(offset)
-    got = 0
-    while got < nbytes:            # short only at the end of the file
-        n = f.readinto(view[got:])
-        if not n:
-            break
-        got += n
+    pool, workers = (_reader_pool() if nbytes >= 2 * _RANGE_BYTES
+                     else (None, 0))
+    t = min(1 + workers, nbytes // _RANGE_BYTES)
+    if t > 1:
+        got = _read_split(f.fileno(), view, offset, nbytes, pool, t)
+    else:
+        f.seek(offset)
+        got = 0
+        while got < nbytes:            # short only at the end of the file
+            n = f.readinto(view[got:])
+            if not n:
+                break
+            got += n
     return x[:got // dt.itemsize]
+
+
+_read_samples.split_reads = 0
+_read_samples.ranges = 0
 
 
 def read_wav(path: str, prefer_int16: bool = False, *, into=None):

@@ -2,13 +2,16 @@
 marker): the masters are bit for bit those of the pageable route it
 replaced, at the benchmark cells' settings; the blocks are page-locked;
 ``io.decode``, ``api.upload`` and ``api.fetch`` count no host bytes from
-the second call of a size class on; two threads master at once; and a
-call that raised after its upload leaves the next call's master right.
+the second call of a size class on; two threads master at once; a call
+that raised after its upload leaves the next call's master right; and a
+mean cell track is read into the "in" block as ranges at once, to the
+master of the sequential read.
 Without a card each test skips.
 
 Imports no JAX: on the card run ``python -m pytest -m cuda --noconftest
 -p no:cacheprovider tests/test_torch_staging_card.py``."""
 
+import os
 import threading
 
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 from ame_tpu_torch import api
 from ame_tpu_torch.config import MasterSettings
 from ame_tpu_torch.graph import chain
-from ame_tpu_torch.io import read_audio, staging, write_audio
+from ame_tpu_torch.io import read_audio, staging, wav, write_audio
 from ame_tpu_torch.ops.quantize import float_to_int16
 from ame_tpu_torch.utils import telemetry
 
@@ -159,3 +162,32 @@ def test_a_call_that_raised_after_its_upload_leaves_the_next_right(
     monkeypatch.undo()
     api.master_file(second, str(tmp_path / "o.wav"), LUFS, device=card)
     assert _read(str(tmp_path / "o.wav")) == want
+
+
+@pytest.mark.cuda
+def test_a_mean_track_is_read_into_the_in_block_in_ranges(card, tmp_path,
+                                                          monkeypatch):
+    """220 s, the cells' mean track (38.8 MB of PCM16): the decode into
+    the page-locked "in" block splits into as many ranges as the reader
+    threads allow, and ``master_file`` writes the bytes it writes with the
+    split turned off."""
+    path = _track(tmp_path, "mean.wav", 220.0, 7)
+    out = str(tmp_path / "o.wav")
+    monkeypatch.setattr(wav._read_samples, "split_reads", 0)
+    monkeypatch.setattr(wav._read_samples, "ranges", 0)
+    audio, _ = read_audio(path, prefer_int16=True,
+                          into=staging.decode_destination(card))
+    assert audio.nbytes == 38_808_000
+    assert audio.ctypes.data == staging.pool(card).block("in", 16).data_ptr()
+    workers = min(7, len(os.sched_getaffinity(0)) - 1)
+    ranges = min(1 + workers, audio.nbytes // wav._RANGE_BYTES)
+    assert ranges > 1
+    assert (wav._read_samples.split_reads, wav._read_samples.ranges) == (
+        1, ranges)
+    api.master_file(path, out, NOLUFS, device=card)
+    assert wav._read_samples.split_reads == 2
+    split = _read(out)
+    monkeypatch.setattr(wav, "_RANGE_BYTES", 1 << 62)
+    api.master_file(path, out, NOLUFS, device=card)
+    assert wav._read_samples.split_reads == 2
+    assert _read(out) == split

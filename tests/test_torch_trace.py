@@ -5,6 +5,7 @@ its track, threads kept apart, the page-fault counter, the
 ``torch.profiler`` ranges, and ``master_graph(timer=)`` on the same clock."""
 
 import contextlib
+import mmap
 import threading
 
 import numpy as np
@@ -150,9 +151,14 @@ def test_faults_are_the_threads_getrusage_delta(mode, monkeypatch):
         inner, outer = telemetry.records()
         assert (inner.faults, outer.faults) == (1500 - 1007, 1730 - 1000)
     else:
+        # 64 MB of fresh pages, written: an anonymous mapping of its own,
+        # since malloc may hand back heap pages that earlier tests in the
+        # process faulted in already
+        fresh = mmap.mmap(-1, 64 << 20)
         with telemetry.tracing():
             with telemetry.stage_timer("touch") as span:
-                a = np.ones(64 << 20, np.uint8)     # 64 MB, written
+                a = np.frombuffer(fresh, np.uint8)
+                a[:] = 1
         assert span.faults > 0 and a[-1] == 1
 
 
